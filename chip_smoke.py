@@ -6,11 +6,16 @@ Phases (any failed check raises, so the exit code is not 0):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``relaxtpu_torch/csrc`` and time the build;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the 540p main path: K1 (matrix update) and K2 (box blur +
-   solve) at the four pyramid levels with 16 pairs and per-pixel random
-   flows up to +-40 px, K3 (attention) at (48, 197, 12, 64) in f32 and
-   bf16; every input sits at the start of a NaN-filled allocation;
+   print each kernel function's registers and spills (ptxas) and the count
+   of tensor-core instructions in each K3 function's SASS (cuobjdump),
+   failing if a bf16 K3 function has none;
+3. hold each kernel against its plain PyTorch version on the card: K1
+   (matrix update) and K2 (box blur + solve) at the four 540p pyramid
+   levels with 16 pairs and per-pixel random flows up to +-40 px, and at
+   16x20 and 67x131; K2 also at winsize 5 and 17 and refusing 19; K3
+   (attention) at (48, 197, 12, 64) and at N in {1, 17, 64, 197, 208, 256}
+   x D in {32, 64}, in f32 and bf16, contiguous and as packed-qkv slices;
+   every input sits at the start of a NaN-filled allocation;
 4. the 35,203 vector of a CUDA run against a CPU run (2 frames, 240x320,
    depth-2 ViT, f32 with TF32 off): per-segment cosine >= 0.99999;
 5. the full-width main path: a seeded 540x960 raw I420 clip of 32 frames at
@@ -20,7 +25,8 @@ Phases (any failed check raises, so the exit code is not 0):
    be finite and the bf16 vector within cosine 0.9999 of the f32 one;
    then one more video records every kernel call's inputs, and each kernel,
    its plain version and (for K3) ``F.scaled_dot_product_attention`` are
-   checked and timed on exactly those inputs (CUDA events), per video;
+   checked and timed on exactly those inputs, per video: CUDA events
+   around repeated calls, and the profiler's device durations alone;
 6. print the ``kernels`` JSON line, the card line and the final status line.
 
 Exits with 1 and prints no result when CUDA is not available.  Details go
@@ -32,6 +38,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,7 +60,7 @@ from relaxtpu_torch.models.resnet import ResNet50
 from relaxtpu_torch.models.vit import ViT
 from relaxtpu_torch.model.mlp import Mlp
 from relaxtpu_torch.ops.attention import mha, mha_plain
-from relaxtpu_torch.ops.boxsolve import box_blur_solve, box_blur_solve_plain
+from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve, box_blur_solve_plain
 from relaxtpu_torch.ops.flow import pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
 from relaxtpu_torch.predict import VideoQualityPredictor
@@ -96,6 +103,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fns: list, passes: int = 5) -> float | None:
+    """Summed device time of the work that the calls in ``fns`` launch, in
+    ms per pass over them, from torch.profiler's CUDA activity (no host or
+    launch time); None when the profiler saw no device activity."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(passes):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / passes if us > 0 else None
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max |got - want|, that over max |want|); raises on non-finite output."""
     if not torch.isfinite(got).all():
@@ -125,46 +149,96 @@ def nan_padded(t: torch.Tensor, extra: int = 4096) -> torch.Tensor:
     return buf[: t.numel()].view(t.shape)
 
 
+# ------------------------------------------------------------------ phase 2
+def report_build(so: str) -> dict:
+    """ptxas's registers and spills for every kernel function, and the count
+    of tensor-core instructions (HMMA/HGMMA) in each K3 function's SASS
+    (cuobjdump from the toolkit that built them); raises if a bf16 K3
+    function has none."""
+    funcs = {}
+    for src in ("warp.cu", "boxsolve.cu", "attention.cu"):
+        name = None
+        for line in open(os.path.join(_native.BUILD_DIR, src + ".log")):
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                name = m.group(1)
+                funcs[name] = {"source": src}
+            elif name and "spill" in line:
+                funcs[name]["spill"] = line.strip()
+            elif name and (m := re.search(r"Used (\d+) registers", line)):
+                funcs[name]["registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True, check=True).stdout
+    name = None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = m.group(1)
+            funcs.setdefault(name, {})["tensor_core_instructions"] = 0
+        elif name and "mha" in name and re.search(r"\bHG?MMA\b", line):
+            funcs[name]["tensor_core_instructions"] += 1
+    for name, f in funcs.items():
+        kernel = re.search(r"(update_matrices|box_blur_solve|mha_bf16|mha_f32)_kernel", name)
+        args = ",".join(re.findall(r"Li(\d+)E", name))
+        f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
+        mma = f"; {f['tensor_core_instructions']} HMMA/HGMMA" if "mha" in name else ""
+        print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
+    bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
+    if not bf16_mha or not all(f.get("tensor_core_instructions") for f in bf16_mha):
+        raise AssertionError("a bf16 K3 function has no tensor-core instructions in its SASS")
+    return funcs
+
+
 # ------------------------------------------------------------------ phase 3
 def check_flow_kernels(gen: torch.Generator) -> dict:
     """K1 and K2 against their plain versions at the four 540p levels, with
     per-pixel random flows up to +-40 px (many corners clipped, many pixels
-    outside) and NaN-padded inputs."""
+    outside) and NaN-padded inputs; K2 also at ragged shapes, at other odd
+    windows, and refusing a window above its largest."""
     worst = {"K1": 0.0, "K2": 0.0}
-    for _, hk, wk in pyramid_levels(H, W):
-        r0 = torch.randn((PAIRS, 5, hk, wk), generator=gen, device="cuda") * 50
-        r1 = torch.randn((PAIRS, 5, hk, wk), generator=gen, device="cuda") * 50
-        flow = (torch.rand((PAIRS, 2, hk, wk), generator=gen, device="cuda") * 2 - 1) * 40
+    shapes = [(PAIRS, hk, wk, 15) for _, hk, wk in pyramid_levels(H, W)]
+    shapes += [(2, 16, 20, 15), (2, 67, 131, 15), (2, 67, 131, 5), (PAIRS, 135, 240, 5),
+               (2, 67, 131, MAX_WINSIZE), (PAIRS, 135, 240, MAX_WINSIZE)]
+    for p, hk, wk, ws in shapes:
+        r0 = torch.randn((p, 5, hk, wk), generator=gen, device="cuda") * 50
+        r1 = torch.randn((p, 5, hk, wk), generator=gen, device="cuda") * 50
+        flow = (torch.rand((p, 2, hk, wk), generator=gen, device="cuda") * 2 - 1) * 40
         r0, r1, flow = nan_padded(r0), nan_padded(r1), nan_padded(flow)
         m = update_matrices(r0, r1, flow)
         err, rel = rel_err(m, update_matrices_plain(r0, r1, flow))
-        check(f"K1 {hk}x{wk}", rel, TOL["K1"])
+        check(f"K1 {p}x{hk}x{wk}", rel, TOL["K1"])
         worst["K1"] = max(worst["K1"], err)
         m = nan_padded(m)  # PSD normal-equation planes, as on the main path
-        err, rel = rel_err(box_blur_solve(m, 15), box_blur_solve_plain(m, 15))
-        check(f"K2 {hk}x{wk}", rel, TOL["K2"])
+        err, rel = rel_err(box_blur_solve(m, ws), box_blur_solve_plain(m, ws))
+        check(f"K2 {p}x{hk}x{wk} winsize {ws}", rel, TOL["K2"])
         worst["K2"] = max(worst["K2"], err)
+    try:
+        box_blur_solve(m, MAX_WINSIZE + 2)
+    except ValueError as e:
+        print(f"  K2 winsize {MAX_WINSIZE + 2} refused: {e}")
+    else:
+        raise AssertionError(f"K2 took winsize {MAX_WINSIZE + 2}, above its largest")
     return worst
 
 
 def check_attention_kernel(gen: torch.Generator) -> dict:
-    """K3 at the ViT shape, f32 and bf16, contiguous NaN-padded inputs and
-    column slices of a NaN-padded packed qkv tensor."""
-    b, n, h, d = ATTN_SHAPE
-    scale = d**-0.5
+    """K3 in f32 and bf16 at the ViT shape and at N in {1, 17, 64, 197, 208,
+    256} x D in {32, 64}, on contiguous NaN-padded inputs and on column
+    slices of a NaN-padded packed qkv tensor."""
+    cases = [ATTN_SHAPE] + [(2, n, 3, d) for n in (1, 17, 64, 197, 208, 256) for d in (32, 64)]
     worst = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
-        q, k, v = (qkv[..., i * h * d : (i + 1) * h * d].reshape(b, n, h, d).contiguous() for i in range(3))
-        q, k, v = nan_padded(q), nan_padded(k), nan_padded(v)
-        want = mha_plain(q, k, v, scale)
-        err, rel = rel_err(mha(q, k, v, scale), want)
-        check(f"K3 {tag} {ATTN_SHAPE}", rel, TOL[f"K3_{tag}"])
-        packed = nan_padded(qkv)
-        qs, ks, vs = (packed[..., i * h * d : (i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3))
-        err2, rel2 = rel_err(mha(qs, ks, vs, scale), want)
-        check(f"K3 {tag} packed-qkv slices", rel2, TOL[f"K3_{tag}"])
-        worst[f"K3_{tag}"] = max(err, err2)
+        worst[f"K3_{tag}"] = 0.0
+        for b, n, h, d in cases:
+            scale = d**-0.5
+            qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
+            q, k, v = (nan_padded(qkv[..., i * h * d : (i + 1) * h * d].reshape(b, n, h, d)) for i in range(3))
+            want = mha_plain(q, k, v, scale)
+            err, rel = rel_err(mha(q, k, v, scale), want)
+            check(f"K3 {tag} {(b, n, h, d)} contiguous", rel, TOL[f"K3_{tag}"])
+            packed = nan_padded(qkv)
+            qs, ks, vs = (packed[..., i * h * d : (i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3))
+            err2, rel2 = rel_err(mha(qs, ks, vs, scale), want)
+            check(f"K3 {tag} {(b, n, h, d)} packed-qkv slices", rel2, TOL[f"K3_{tag}"])
+            worst[f"K3_{tag}"] = max(worst[f"K3_{tag}"], err, err2)
     return worst
 
 
@@ -192,26 +266,31 @@ def record_kernel_inputs(pred: VideoQualityPredictor, clip: str) -> dict:
 
 def time_on_main_path_inputs(calls: dict, tag: str) -> dict:
     """Per video: kernel, plain version (and SDPA for K3) timed on each
-    recorded call and summed; the kernel held against the plain version on
-    those inputs; the bound from those inputs' sizes."""
+    recorded call and summed, by CUDA events around repeated calls (``ms``)
+    and, for the kernel and SDPA, by the profiler's device durations alone
+    (``device_ms``); the kernel held against the plain version on those
+    inputs; the bound from those inputs' sizes."""
     kernel = {"K1": update_matrices, "K2": box_blur_solve, "K3": mha}
     plain = {"K1": update_matrices_plain, "K2": box_blur_solve_plain, "K3": mha_plain}
     out = {}
     for key, recorded in calls.items():
         r = {"calls": len(recorded), "err": 0.0, "ms": 0.0, "plain_ms": 0.0,
              "library_ms": 0.0 if key == "K3" else None, "bytes": 0.0, "flops": 0.0}
+        kernel_fns, library_fns = [], []
         for args, kwargs in recorded:
             got, want = kernel[key](*args, **kwargs), plain[key](*args, **kwargs)
             err, rel = rel_err(got, want)
             check(f"{key} {tag} main-path call {tuple(args[0].shape)}", rel,
                   TOL[f"K3_{tag}"] if key == "K3" else TOL[key])
             r["err"] = max(r["err"], err)
-            r["ms"] += cuda_ms(lambda: kernel[key](*args, **kwargs))
+            kernel_fns.append(lambda args=args, kwargs=kwargs: kernel[key](*args, **kwargs))
+            r["ms"] += cuda_ms(kernel_fns[-1])
             r["plain_ms"] += cuda_ms(lambda: plain[key](*args, **kwargs), iters=5)
             if key == "K3":
                 q, k, v = (t.transpose(1, 2) for t in args)
-                r["library_ms"] += cuda_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v, scale=kwargs["scale"]))
+                library_fns.append(lambda q=q, k=k, v=v, scale=kwargs["scale"]:
+                                   F.scaled_dot_product_attention(q, k, v, scale=scale))
+                r["library_ms"] += cuda_ms(library_fns[-1])
                 b, n, h, d = args[0].shape
                 r["bytes"] += 4.0 * b * n * h * d * args[0].element_size()
                 r["flops"] += 4.0 * b * h * n * n * d
@@ -221,9 +300,11 @@ def time_on_main_path_inputs(calls: dict, tag: str) -> dict:
                 r["flops"] += px * (K1_FLOPS_PER_PX if key == "K1" else K2_FLOPS_PER_PX)
         r["bound_ms"], r["bound_by"] = bound(
             r["bytes"], r["flops"], args[0].dtype)
+        r["device_ms"] = device_ms(kernel_fns)
+        r["library_device_ms"] = device_ms(library_fns) if library_fns else None
         print(f"  {key} {tag}: {r['calls']} calls, {r['ms']:.4f} ms per video "
-              f"(plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
-              f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+              f"(device only {r['device_ms']}; plain {r['plain_ms']:.4f}; library {r['library_ms']}, "
+              f"device only {r['library_device_ms']}; bound {r['bound_ms']:.4f} by {r['bound_by']})")
         out[key] = r
     return out
 
@@ -360,12 +441,7 @@ def main() -> int:
     _native.lib()
     build_s = time.perf_counter() - t0
     print(f"[2] kernels built and loaded in {build_s:.1f} s")
-    for src in ("warp.cu", "boxsolve.cu", "attention.cu"):
-        log = os.path.join(_native.BUILD_DIR, src + ".log")
-        if os.path.exists(log):
-            for line in open(log):
-                if "registers" in line or "spill" in line:
-                    print(f"  {src}: {line.strip()}")
+    build_info = report_build(_native.build())
 
     print("[3] kernels against their plain versions (540p shapes)")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -382,20 +458,23 @@ def main() -> int:
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
                "K3": ("mha", "relaxtpu_torch/csrc/attention.cu", "relaxtpu/ops/attention.py:34")}
     kernels = []
-    bf16 = main_res["bf16"]
-    for key, (name, src, rep) in sources.items():
-        r = bf16["kernels"][key]
+    rows = [(key, "bf16") for key in sources] + [("K3", "f32")]
+    for key, tag in rows:
+        name, src, rep = sources[key]
+        r = main_res[tag]["kernels"][key]
         kernels.append({
-            "name": f"{key} {name}", "route": "cuda", "source": src, "replaces": rep,
-            "launches": bf16["launches"][key],
-            "max_abs_err": max(r["err"], stress[key if key != "K3" else "K3_bf16"]),
+            "name": f"{key} {name}" + (" (f32)" if tag == "f32" else ""), "route": "cuda",
+            "source": src, "replaces": rep, "launches": main_res[tag]["launches"][key],
+            "max_abs_err": max(r["err"], stress[key if key != "K3" else f"K3_{tag}"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
         })
 
     with open(os.path.join(WORK_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "build_s": build_s, "kernels": kernels, "stress_max_abs_err": stress,
+                   "build_s": build_s, "build": build_info, "kernels": kernels,
+                   "stress_max_abs_err": stress,
                    "cuda_vs_cpu_cosine": cos_cpu, "main_path": main_res}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -46,6 +46,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_fns: dict = {}  # name -> bound C function, filled when the library loads
 
 
 def _nvcc() -> str:
@@ -110,14 +111,15 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+                _fns[name] = fn
             _lib = handle
     return _lib
 
 
 def launch(name: str, *args) -> None:
     """Call a C entry point on the current stream; raise on a CUDA error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    fn = _fns.get(name) or getattr(lib(), name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -4,144 +4,469 @@
 // (launched by fused_mha), with the numerics of the einsum form at
 // relaxtpu/models/vit.py:60-64: per (image, head)
 //   S = Q K^T * scale, accumulated in f32; keys >= N masked to -inf;
-//   row softmax in f32; P cast to the activation type;
-//   O = P V accumulated in f32, written in the activation type.
-// The score tile never leaves the SM.
+//   exact row softmax in f32 (max, exp, sum, divide); P normalised, then
+//   cast to the activation type; O = P V accumulated in f32, written in the
+//   activation type.  The score rows never leave the SM.  N <= 256 means a
+//   whole score row fits on chip, so the softmax is exact, not the online
+//   (flash) rescaling, which would divide after P V and so round P to bf16
+//   at another place than the JAX package.
 //
 // What bounds it on the card: at the ViT-B/16 shape (B=48, N=197, H=12,
-// D=64) one call does ~5.7 GFLOP on ~58 MB of q/k/v/o in bf16, so its bound
-// is the bytes (about 17 us at 3.35 TB/s) with the tensor cores nearly idle;
-// in f32 without tensor cores the operations bound it (~85 us at 67 TFLOP/s).
-// Design (simple first): one block per (image, head, 64-query tile).  The
-// head's K and V are staged once per block in dynamic shared memory as f32
-// (K rows padded to D+1 floats so 32 lanes reading 32 different keys hit 32
-// banks; ~100 KB at N=197, D=64, hence the opt-in above 48 KB).  Each warp
-// takes one query row at a time: the row lives in registers, lane l scores
-// keys l, l+32, ... with plain FMA loops, the max and the sum are warp
-// shuffles, and P.V broadcasts each probability by shuffle while each lane
-// accumulates its output dims in registers.  wgmma/TMA tiling is later work.
+// D=64) one call does ~5.7 GFLOP on ~58 MB of q/k/v/o.  In bf16 the bytes
+// bound it (~17 us at 3.35 TB/s against ~6 us of tensor-core work); in f32,
+// with TF32 off, the FMA rate does (~85 us at 67 TFLOP/s).
+//
+// bf16 design (bytes first: the L2-to-SM path, not the tensor cores, is
+// what a per-tile kernel saturates here): one block of 4 warps per (image,
+// head, 8 query tiles of 16), so N = 197 takes 2 blocks a head and the
+// head's K and V (keys padded with zero rows to 16*KT, a compile-time bucket
+// >= N) are staged in shared memory twice a head, not once a 16-query tile;
+// 16-byte cp.async, V landing during the first round's Q K^T; rows padded to
+// D+8 elements so every ldmatrix is free of bank conflicts.  Each warp takes
+// one 16-query tile a round: its Q rows by 16-byte loads, Q K^T with
+// mma.sync.m16n8k16 (bf16 in, f32 out; K through ldmatrix), the 16 x 16*KT
+// score tile in registers, row max and row sum by quad shuffles, then the
+// normalised P packed to bf16 straight from the accumulators into the A
+// operand of P V (V through ldmatrix.trans).
+//
+// f32 design (strict parity: no TF32; the FMA rate bounds it):
+// register-blocked FMAs.  One block of 192 threads per (image, head,
+// 48-query tile) stages Q and K in shared memory (rows padded to D+4
+// floats); each thread computes a 4-query x 8-key micro-tile of S (12
+// 16-byte shared loads feed 128 FMAs), the scores go to shared memory
+// key-major, V's load into K's buffer overlaps the softmax (4 threads a
+// row), and P V runs as 4-query x D/16 micro-tiles.  At N = 197 a block
+// takes ~110 KB, so two share an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int QT = 64;     // queries per block
-constexpr int WARPS = 8;   // warps per block
-constexpr int SLOTS = 8;   // keys per lane: N <= 256
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+constexpr int MAX_N = 256;  // whole score rows on chip
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// q, k, v: (B, N, H, D) sharing the element strides (sb, sn, D, 1);
-// o: contiguous (B, N, H, D).
-template <typename T, int D>
-__global__ void __launch_bounds__(WARPS * 32)
-mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, int N, int H, long long sb, long long sn, float scale) {
-  extern __shared__ float smem[];
-  constexpr int KS = D + 1;
-  float* ks = smem;           // N x KS
-  float* vs = smem + N * KS;  // N x D
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * QT;
-  const long long base = (long long)b * sb + (long long)h * D;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// a / b for the b that a whole row shares, given r = 1/b correctly rounded:
+// q = a r rounded, the remainder a - q b exact by FMA, then q + rem r
+// rounded, which is the correctly rounded quotient for normal operands
+// (Markstein), at 3 operations instead of a full division each.
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q = __fmul_rn(a, r);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+}
 
-  for (int i = threadIdx.x; i < N * D; i += blockDim.x) {
-    const int j = i / D;
-    const int d = i - j * D;
-    const long long g = base + (long long)j * sn + d;
-    ks[j * KS + d] = to_f(k[g]);
-    vs[j * D + d] = to_f(v[g]);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------------ bf16
+constexpr int QB = 8;  // 16-query tiles a bf16 block: 2 rounds of 4 warps; N = 197 takes 2
+
+template <int D, int KT>
+constexpr size_t bf16_smem() {
+  return sizeof(bf16) * (size_t)(2 * 16 * KT + 4 * 16) * (D + 8);
+}
+
+// q, k, v: (B, N, H, D) sharing the element strides (sb, sn, D, 1), rows
+// 16-byte aligned; o: contiguous (B, N, H, D).  N <= 16 * KT.  Block
+// (x, h, b) takes query tiles QB x .. QB x + QB - 1 of (image b, head h).
+template <int D, int KT>
+__global__ void __launch_bounds__(128)
+mha_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int N, int H, long long sb,
+                long long sn, float scale) {
+  constexpr int LD = D + 8;  // (D+8)*2 bytes = 16 x odd: ldmatrix rows on distinct banks
+  constexpr int NP = 16 * KT;
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // NP x LD
+  bf16* vs = ks + NP * LD;                       // NP x LD
+  const int h = blockIdx.y;
+  const long long base = (long long)blockIdx.z * sb + (long long)h * D;
+  const int tid = threadIdx.x;
+
+  // The head's K (group 0) and V (group 1), once for the block's tiles; V
+  // lands during the first round's Q K^T.  Rows past N are zero-filled
+  // (inputs may sit beside NaN, and 0 x NaN is NaN in P V).
+  for (int part = 0; part < 2; ++part) {
+    bf16* const dst0 = part ? vs : ks;
+    const bf16* const src = part ? v : k;
+    for (int i = tid; i < NP * CH; i += 128) {
+      const int tok = i / CH, c = (i % CH) * 8;
+      if (tok < N)
+        cp_async16(dst0 + tok * LD + c, src + base + (long long)tok * sn + c);
+      else
+        *reinterpret_cast<uint4*>(dst0 + tok * LD + c) = make_uint4(0, 0, 0, 0);
+    }
+    cp_async_commit();
   }
+  cp_async_wait<1>();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int qend = min(q0 + QT, N);
-  for (int qi = q0 + warp; qi < qend; qi += WARPS) {
-    const T* qp = q + base + (long long)qi * sn;
-    float qr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f(qp[d]);
-
-    float s[SLOTS];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < SLOTS; ++t) {
-      const int j = t * 32 + lane;
-      if (j < N) {
-        const float* kr = ks + j * KS;
-        float acc = 0.0f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc += qr[d] * kr[d];
-        s[t] = acc * scale;
-      } else {
-        s[t] = -INFINITY;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* const qs = vs + NP * LD + warp * 16 * LD;  // this warp's 16 query rows
+  const int last = min((int)(blockIdx.x + 1) * QB, (N + 15) / 16);
+  for (int round = 0; round < (QB + 3) / 4; ++round) {  // the same count in every warp
+    const int tile = blockIdx.x * QB + 4 * round + warp;
+    const bool active = tile < last;  // warp-uniform
+    const int r0 = 16 * tile;         // the tile's first query row
+    float s[2 * KT][4];  // 16 x NP scores: n8 tile j holds keys 8j + 2t (+1), rows g and g + 8
+    if (active) {
+      for (int i = lane; i < 16 * CH; i += 32) {  // rows past N as zeros
+        const int row = i / CH, c = (i % CH) * 8;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (r0 + row < N)
+          val = *reinterpret_cast<const uint4*>(q + base + (long long)(r0 + row) * sn + c);
+        *reinterpret_cast<uint4*>(qs + row * LD + c) = val;
       }
-      mx = fmaxf(mx, s[t]);
-    }
+      __syncwarp();
+      uint32_t qa[D / 16][4];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.0f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldmatrix_x4(qa[kk], qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-    for (int t = 0; t < SLOTS; ++t) {
-      s[t] = expf(s[t] - mx);  // exp(-inf) = 0 for masked keys
-      sum += s[t];
-    }
+      for (int j = 0; j < 2 * KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int nt = 0; nt < KT; ++nt) {
 #pragma unroll
-    for (int t = 0; t < SLOTS; ++t) s[t] = to_f(from_f<T>(s[t] / sum));
-
-    float acc[D / 32];
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ks + (16 * nt + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * nt], qa[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * nt + 1], qa[kk], kb[2], kb[3]);
+        }
+      }
+      // scale, mask, exact softmax; rows g (elements 0, 1) and g + 8 (2, 3)
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) acc[i] = 0.0f;
+      for (int j = 0; j < 2 * KT; ++j) {
 #pragma unroll
-    for (int t = 0; t < SLOTS; ++t) {
-      if (t * 32 >= N) break;  // warp-uniform
-      const int nsrc = min(32, N - t * 32);
-      for (int src = 0; src < nsrc; ++src) {
-        const float pj = __shfl_sync(0xffffffffu, s[t], src);
-        const float* vr = vs + (t * 32 + src) * D + lane;
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+        if (8 * j + 8 > N) {  // warp-uniform: only tiles that reach past N
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) acc[i] += pj * vr[32 * i];
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * t + (e & 1) >= N) s[j][e] = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2 * KT; ++j) {
+        s[j][0] = expf(s[j][0] - mx0);  // exp(-inf) = 0 for masked keys
+        s[j][1] = expf(s[j][1] - mx0);
+        s[j][2] = expf(s[j][2] - mx1);
+        s[j][3] = expf(s[j][3] - mx1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      const float rs0 = __frcp_rn(sum0), rs1 = __frcp_rn(sum1);
+#pragma unroll
+      for (int j = 0; j < 2 * KT; ++j) {
+        s[j][0] = div_by(s[j][0], sum0, rs0);
+        s[j][1] = div_by(s[j][1], sum0, rs0);
+        s[j][2] = div_by(s[j][2], sum1, rs1);
+        s[j][3] = div_by(s[j][3], sum1, rs1);
       }
     }
-    T* op = o + (((long long)b * N + qi) * H + h) * D + lane;
+    if (round == 0) {  // V in, for every warp
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (active) {
+      float acc[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) op[32 * i] = from_f<T>(acc[i]);
+      for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        // the accumulators of key tiles 2kk, 2kk+1 are the A fragment of P's k-step kk
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dn * 16 +
+                                    (lane >> 4) * 8);
+          mma_bf16(acc[2 * dn], pa, vb[0], vb[1]);
+          mma_bf16(acc[2 * dn + 1], pa, vb[2], vb[3]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + g + 8 * half;
+        if (row >= N) continue;
+        bf16* op = o + (((long long)blockIdx.z * N + row) * H + h) * D + 2 * t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(op + 8 * j) =
+              pack_bf16(acc[j][2 * half], acc[j][2 * half + 1]);
+      }
+    }
+    __syncwarp();  // the next tile overwrites this warp's rows
   }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
-             long long sb, long long sn, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)N * (2 * D + 1);
-  cudaError_t err = cudaFuncSetAttribute(mha_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((N + QT - 1) / QT), (unsigned)H, (unsigned)B);
-  mha_kernel<T, D><<<grid, WARPS * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, N, H, sb, sn, scale);
+// ------------------------------------------------------------------- f32
+constexpr int QTF = 48;             // queries per f32 block: two blocks fit an SM at N=197
+constexpr int NTF = QTF / 4 * 16;   // threads: 4 queries x 16 key (or dim) lanes each
+
+template <int D>
+constexpr size_t f32_smem(int n) {
+  // Q tile, K (then V), the scores key-major, two reduction rows
+  return sizeof(float) * ((size_t)(QTF + n) * (D + 4) + (size_t)n * (QTF + 4) + 2 * 4 * QTF);
+}
+
+// s[i][m] += Q[4ty + i] . K[kc + tx + 16m] over all D, for m < MC; key rows
+// read past N are clamped to N - 1 (their scores are never stored).
+template <int D, int MC>
+__device__ __forceinline__ void f32_scores(const float* qs, const float* ks, float* st, int kc,
+                                           int N, float scale, int ty, int tx) {
+  constexpr int LD = D + 4;
+  constexpr int SLD = QTF + 4;
+  float s[4][MC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < MC; ++m) s[i][m] = 0.0f;
+  const float* kr[MC];
+#pragma unroll
+  for (int m = 0; m < MC; ++m) kr[m] = ks + min(kc + tx + 16 * m, N - 1) * LD;
+  const float* qr = qs + 4 * ty * LD;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 qv[4], kv[MC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qr + i * LD + d);
+#pragma unroll
+    for (int m = 0; m < MC; ++m) kv[m] = *reinterpret_cast<const float4*>(kr[m] + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < MC; ++m) {
+        s[i][m] = fmaf(qv[i].x, kv[m].x, s[i][m]);
+        s[i][m] = fmaf(qv[i].y, kv[m].y, s[i][m]);
+        s[i][m] = fmaf(qv[i].z, kv[m].z, s[i][m]);
+        s[i][m] = fmaf(qv[i].w, kv[m].w, s[i][m]);
+      }
+  }
+#pragma unroll
+  for (int m = 0; m < MC; ++m) {
+    const int key = kc + tx + 16 * m;
+    if (key < N)
+      *reinterpret_cast<float4*>(st + key * SLD + 4 * ty) =
+          make_float4(s[0][m] * scale, s[1][m] * scale, s[2][m] * scale, s[3][m] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTF)
+mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int N, int H, long long sb,
+               long long sn, float scale) {
+  constexpr int LD = D + 4;   // 16-byte rows; 8 consecutive rows hit 8 distinct bank quads
+  constexpr int SLD = QTF + 4;
+  constexpr int CH = D / 4;   // 16-byte chunks a row
+  constexpr int DT = D / 16;  // output dims a thread in P V
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;           // QTF x LD
+  float* kvs = qs + QTF * LD;  // N x LD: K, then V
+  float* st = kvs + N * LD;    // N x SLD: scores, then P, key-major
+  float* red = st + N * SLD;   // 2 x 4 x QTF
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * QTF;
+  const long long base = (long long)blockIdx.z * sb + (long long)h * D;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+
+  for (int i = tid; i < (QTF + N) * CH; i += NTF) {
+    const int row = i / CH, c = (i % CH) * 4;
+    const bool is_q = row < QTF;
+    const int tok = is_q ? q0 + row : row - QTF;
+    float* dst = is_q ? qs + row * LD + c : kvs + tok * LD + c;
+    if (tok < N)
+      cp_async16(dst, (is_q ? q : k) + base + (long long)tok * sn + c);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // S in chunks of 128 keys; the tail in 64, then 16 (197 -> 128 + 64 + 16)
+  for (int kc = 0; kc < N;) {
+    const int rem = N - kc;
+    if (rem >= 128) {
+      f32_scores<D, 8>(qs, kvs, st, kc, N, scale, ty, tx);
+      kc += 128;
+    } else if (rem > 16) {
+      f32_scores<D, 4>(qs, kvs, st, kc, N, scale, ty, tx);
+      kc += 64;
+    } else {
+      f32_scores<D, 1>(qs, kvs, st, kc, N, scale, ty, tx);
+      kc += 16;
+    }
+  }
+  __syncthreads();  // K no longer read: V goes into its buffer during the softmax
+  for (int i = tid; i < N * CH; i += NTF) {
+    const int tok = i / CH, c = (i % CH) * 4;
+    cp_async16(kvs + tok * LD + c, v + base + (long long)tok * sn + c);
+  }
+  cp_async_commit();
+
+  // exact row softmax: thread (part p, query qq) takes keys p, p+4, ...
+  {
+    const int p = tid / QTF, qq = tid % QTF;
+    float mx = -INFINITY;
+    for (int j = p; j < N; j += 4) mx = fmaxf(mx, st[j * SLD + qq]);
+    red[p * QTF + qq] = mx;
+    __syncthreads();
+    mx = fmaxf(fmaxf(red[qq], red[QTF + qq]), fmaxf(red[2 * QTF + qq], red[3 * QTF + qq]));
+    float sum = 0.0f;
+    for (int j = p; j < N; j += 4) {
+      const float e = expf(st[j * SLD + qq] - mx);
+      st[j * SLD + qq] = e;
+      sum += e;
+    }
+    red[(4 + p) * QTF + qq] = sum;
+    __syncthreads();
+    sum = red[4 * QTF + qq] + red[5 * QTF + qq] + red[6 * QTF + qq] + red[7 * QTF + qq];
+    const float rsum = __frcp_rn(sum);
+    for (int j = p; j < N; j += 4) st[j * SLD + qq] = div_by(st[j * SLD + qq], sum, rsum);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[4][DT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DT; ++e) acc[i][e] = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < N; ++j) {
+    const float4 pj = *reinterpret_cast<const float4*>(st + j * SLD + 4 * ty);
+    const float pv[4] = {pj.x, pj.y, pj.z, pj.w};
+    float vv[DT];
+    if constexpr (DT == 4) {
+      const float4 t4 = *reinterpret_cast<const float4*>(kvs + j * LD + DT * tx);
+      vv[0] = t4.x, vv[1] = t4.y, vv[2] = t4.z, vv[3] = t4.w;
+    } else {
+      const float2 t2 = *reinterpret_cast<const float2*>(kvs + j * LD + DT * tx);
+      vv[0] = t2.x, vv[1] = t2.y;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < DT; ++e) acc[i][e] = fmaf(pv[i], vv[e], acc[i][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= N) continue;
+    float* op = o + (((long long)blockIdx.z * N + row) * H + h) * D + DT * tx;
+#pragma unroll
+    for (int e = 0; e < DT; e += 2)
+      *reinterpret_cast<float2*>(op + e) = make_float2(acc[i][e], acc[i][e + 1]);
+  }
+}
+
+// --------------------------------------------------------------- launch
+// The dynamic shared-memory opt-in is set once per kernel function (a
+// static in each launcher instantiation), to the most it can ask for.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t most) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+}
+
+template <int D, int KT>
+int launch_bf16_kt(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+                   long long sb, long long sn, float scale, cudaStream_t stream) {
+  constexpr size_t smem = bf16_smem<D, KT>();
+  static const cudaError_t attr = opt_in(mha_bf16_kernel<D, KT>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((unsigned)(((N + 15) / 16 + QB - 1) / QB), (unsigned)H, (unsigned)B);
+  mha_bf16_kernel<D, KT><<<grid, 128, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, H, sb, sn, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int H, int D,
-           long long sb, long long sn, float scale, cudaStream_t stream) {
-  if (N < 1 || N > SLOTS * 32) return (int)cudaErrorInvalidValue;
-  if (D == 64) return launch_d<T, 64>(q, k, v, o, B, N, H, sb, sn, scale, stream);
-  if (D == 32) return launch_d<T, 32>(q, k, v, o, B, N, H, sb, sn, scale, stream);
-  return (int)cudaErrorInvalidValue;
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+                long long sb, long long sn, float scale, cudaStream_t stream) {
+  // key buckets: 16, 32, 64, 128, 208 (the ViT's 197), 256
+  if (N <= 16) return launch_bf16_kt<D, 1>(q, k, v, o, B, N, H, sb, sn, scale, stream);
+  if (N <= 32) return launch_bf16_kt<D, 2>(q, k, v, o, B, N, H, sb, sn, scale, stream);
+  if (N <= 64) return launch_bf16_kt<D, 4>(q, k, v, o, B, N, H, sb, sn, scale, stream);
+  if (N <= 128) return launch_bf16_kt<D, 8>(q, k, v, o, B, N, H, sb, sn, scale, stream);
+  if (N <= 208) return launch_bf16_kt<D, 13>(q, k, v, o, B, N, H, sb, sn, scale, stream);
+  return launch_bf16_kt<D, 16>(q, k, v, o, B, N, H, sb, sn, scale, stream);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+               long long sb, long long sn, float scale, cudaStream_t stream) {
+  static const cudaError_t err = opt_in(mha_f32_kernel<D>, f32_smem<D>(MAX_N));
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((N + QTF - 1) / QTF), (unsigned)H, (unsigned)B);
+  mha_f32_kernel<D><<<grid, NTF, f32_smem<D>(N), stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, sb, sn, scale);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte cp.async needs every row start aligned: the pointers and both
+// strides (in bytes) multiples of 16.
+bool rows_aligned(const void* q, const void* k, const void* v, long long sb, long long sn,
+                  size_t elem) {
+  const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  return any % 16 == 0 && (sb * (long long)elem) % 16 == 0 && (sn * (long long)elem) % 16 == 0;
 }
 
 }  // namespace
@@ -149,11 +474,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
 extern "C" int relax_mha_f32(const void* q, const void* k, const void* v, void* o, int B,
                              int N, int H, int D, long long sb, long long sn, float scale,
                              void* stream) {
-  return launch<float>(q, k, v, o, B, N, H, D, sb, sn, scale, (cudaStream_t)stream);
+  if (N < 1 || N > MAX_N || !rows_aligned(q, k, v, sb, sn, sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64) return launch_f32<64>(q, k, v, o, B, N, H, sb, sn, scale, s);
+  if (D == 32) return launch_f32<32>(q, k, v, o, B, N, H, sb, sn, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int relax_mha_bf16(const void* q, const void* k, const void* v, void* o, int B,
                               int N, int H, int D, long long sb, long long sn, float scale,
                               void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, N, H, D, sb, sn, scale, (cudaStream_t)stream);
+  if (N < 1 || N > MAX_N || !rows_aligned(q, k, v, sb, sn, sizeof(bf16)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64) return launch_bf16<64>(q, k, v, o, B, N, H, sb, sn, scale, s);
+  if (D == 32) return launch_bf16<32>(q, k, v, o, B, N, H, sb, sn, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,98 +8,270 @@
 //   dx = (G11*h2 - G12*h1) * idet,  dy = (G22*h1 - G12*h2) * idet.
 //
 // What bounds it on the card: bytes.  It must read 5 planes and write 2
-// (28 bytes a pixel) against ~160 flops a pixel with direct sums.
-// Design: one block per (pair, 16-row slab, 64-column tile).  A full 540p
-// row slab of five planes with its halo would not fit in shared memory, so
-// the slab is cut into column tiles and the planes go through shared memory
-// one at a time: each plane's tile plus an r-pixel halo on every side
-// (rows and columns clamped: the replicate border), a vertical direct sum
-// into a second shared buffer, a horizontal direct sum into registers.  The
-// five box sums of a pixel stay in registers, the solve runs there, and only
-// the two flow planes are written.  Halo re-reads are served by L2.
+// (28 bytes a pixel) against ~155 flops a pixel with direct sums.  On this
+// card the L2-to-SM path, not only device memory, runs near that rate, so
+// every re-read of a halo row costs about what a first read does.  The sums
+// stay direct and in the plain version's tap order (vertical, then
+// horizontal): running add/subtract sums would drift, and the solve
+// amplifies drift where the system is ill-conditioned.  Design:
+// - one block of 256 threads per (pair, strip of 112 or 128 columns, run
+//   of rows): it walks down its rows 8 output rows at a time, keeping each
+//   plane's input rows in a 32-row ring in shared memory (5 x 32 x 128 or
+//   144 floats, 90-100 KB, so two blocks share an SM), so every input row
+//   is read once per run: the halo read is 1.13x across and ~1.1x down,
+//   where 32 x 128 tiles would read 1.6x;
+// - the run length is chosen at launch so the grid fills whole waves of
+//   resident blocks;
+// - rows arrive by 16-byte cp.async over the aligned span (4-byte copies,
+//   clamped, only at the image's edges or for widths that are not a
+//   multiple of 4), one step ahead;
+// - vertical sums: a thread holds a column's (or half a column's) inputs in
+//   registers and forms its sums from them (2.75 to 4.5 shared loads an
+//   output, not 15);
+// - horizontal sums: a thread forms 4 consecutive outputs of a row from 20
+//   values read as five 16-byte loads, a warp covering 128 of a row;
+// - the five box sums of a pixel stay in registers, the solve runs there
+//   with products rounded as the plain version rounds them, and only the
+//   two flow planes are written, a warp storing 512 contiguous bytes.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TW = 64;      // tile columns = threads in x
-constexpr int TY = 4;       // threads in y
-constexpr int TH = 16;      // tile rows
-constexpr int RPT = TH / TY;  // rows per thread
+constexpr int TH = 8;              // output rows a step
+constexpr int NT = 256;            // threads a block
+constexpr int RMAX = 8;            // largest radius: the span starts 8 columns left
+constexpr int RING = 32;           // input rows held per plane: >= 2 TH + 2 RMAX
+static_assert(RING >= 2 * TH + 2 * RMAX && (RING & (RING - 1)) == 0, "ring too small");
 
-__global__ void box_blur_solve_kernel(const float* __restrict__ m, float* __restrict__ out,
-                                      int H, int W, int r, float inv_area) {
-  extern __shared__ float smem[];
-  const int sw = TW + 2 * r;
-  const int sh = TH + 2 * r;
-  float* tile = smem;           // sh x sw
-  float* vsum = smem + sh * sw; // TH x sw
+// A strip of TW output columns stages SW = TW + 16 (the span from x0 - 8).
+// TW = 112 spans 128 columns, so the vertical pass takes a (column, half of
+// the rows) a thread on all 256 threads; TW = 128 spans 144 and takes a
+// column a thread on 144 of them, but wastes fewer columns at widths such
+// as 120, 240 and 480.
+template <int TW>
+struct Strip {
+  static constexpr int SW = TW + 2 * RMAX;
+  static constexpr int VS = SW + 4;             // vertical-sum row stride
+  static constexpr int C4 = SW / 4;             // 16-byte chunks a staged row
+  static constexpr int RUNS = TH * TW / 4;      // 4-pixel runs a step: a thread each
+  static constexpr bool HALVES = 2 * SW == NT;  // else a column a thread
+  static constexpr size_t smem = sizeof(float) * (size_t)(5 * RING * SW + 2 * TH * VS);
+  static_assert(RUNS <= NT, "a thread a run");
+};
 
-  const long long hw = (long long)H * W;
-  const long long p = blockIdx.z;
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  const int nthreads = TW * TY;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  float acc[5][RPT];
+// Ring rows [from, to) of all five planes: ring row r holds image row
+// ys - R + r (clamped: the replicate border), columns x0 - 8 .. x0 + SW - 9.
+// A thread keeps one 16-byte column chunk and walks rows.
+template <int R, int TW>
+__device__ __forceinline__ void load_rows(float* ring, const float* m, int p, int H, int W,
+                                          int ys, int x0, int from, int to, bool vec) {
+  using S = Strip<TW>;
+  constexpr int LANES = NT / S::C4;  // threads a row
+  const int lane = threadIdx.x / S::C4, cc = 4 * (threadIdx.x % S::C4);
+  if (lane >= LANES) return;
+  const int gx = x0 - RMAX + cc;
+  const bool whole = vec && gx >= 0 && gx + 4 <= W;
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
-    const float* plane = m + (p * 5 + c) * hw;
-    for (int i = tid; i < sh * sw; i += nthreads) {
-      const int ty = i / sw;
-      const int tx = i - ty * sw;
-      const int gy = min(max(y0 - r + ty, 0), H - 1);
-      const int gx = min(max(x0 - r + tx, 0), W - 1);
-      tile[i] = plane[(long long)gy * W + gx];
-    }
-    __syncthreads();
-    for (int i = tid; i < TH * sw; i += nthreads) {
-      const int ty = i / sw;
-      const int tx = i - ty * sw;
-      float s = tile[ty * sw + tx];
-      for (int d = 1; d <= 2 * r; ++d) s += tile[(ty + d) * sw + tx];
-      vsum[i] = s;
-    }
-    __syncthreads();
+    const float* plane = m + ((long long)p * 5 + c) * H * W;
+    for (int r = from + lane; r < to; r += LANES) {
+      const float* row = plane + (long long)min(max(ys - R + r, 0), H - 1) * W;
+      float* dst = ring + (c * RING + (r & (RING - 1))) * S::SW + cc;
+      if (whole) {
+        cp_async16(dst, row + gx);
+      } else {
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const float* row = vsum + (threadIdx.y + TY * k) * sw + threadIdx.x;
-      float s = row[0];
-      for (int d = 1; d <= 2 * r; ++d) s += row[d];
-      acc[c][k] = s;
+        for (int e = 0; e < 4; ++e) cp_async4(dst + e, row + min(max(gx + e, 0), W - 1));
+      }
     }
-    __syncthreads();
   }
+}
 
-  const int x = x0 + threadIdx.x;
-  if (x >= W) return;
+// grid: (strips, runs of ``seg`` rows, pairs)
+template <int R, int TW>
+__global__ void __launch_bounds__(NT)
+box_blur_solve_kernel(const float* __restrict__ m, float* __restrict__ out, int H, int W,
+                      int seg, float inv_area, bool vec) {
+  using S = Strip<TW>;
+  constexpr int SW = S::SW, VS = S::VS, RUNS = S::RUNS;
+  extern __shared__ __align__(16) float smem[];
+  float* const ring = smem;                  // 5 x RING x SW
+  float* const vsum = smem + 5 * RING * SW;  // 2 x TH x VS, alternating planes
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * TW;
+  const int ys = blockIdx.y * seg;
+  const int ye = min(ys + seg, H);
+  const int p = blockIdx.z;
+  const int steps = (ye - ys + TH - 1) / TH;
+  const long long hw = (long long)H * W;
+
+  // step k needs ring rows [TH k, TH k + TH + 2R); it brings the last TH
+  load_rows<R, TW>(ring, m, p, H, W, ys, x0, 0, TH + 2 * R, vec);
+  cp_async_commit();
+  for (int k = 0; k < steps; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // step k's rows are in; step k - 1 no longer reads the ring
+    if (k + 1 < steps) {  // into rows below TH k, which step k does not read
+      load_rows<R, TW>(ring, m, p, H, W, ys, x0, TH * (k + 1) + 2 * R, TH * (k + 2) + 2 * R, vec);
+      cp_async_commit();
+    }
+
+    float acc[5][4];  // this thread's run: the five box sums of 4 pixels
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int y = y0 + threadIdx.y + TY * k;
-    if (y >= H) continue;
-    const float g11 = acc[0][k] * inv_area;
-    const float g12 = acc[1][k] * inv_area;
-    const float g22 = acc[2][k] * inv_area;
-    const float h1 = acc[3][k] * inv_area;
-    const float h2 = acc[4][k] * inv_area;
-    const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
-    const long long o = (long long)y * W + x;
-    out[p * 2 * hw + o] = (g11 * h2 - g12 * h1) * idet;
-    out[p * 2 * hw + hw + o] = (g22 * h1 - g12 * h2) * idet;
+    for (int c = 0; c < 5; ++c) {
+      float* const vs = vsum + (c & 1) * TH * VS;
+      // vertical: a thread a column (or a column's half of the rows), its
+      // inputs in registers
+      constexpr int VR = S::HALVES ? TH / 2 : TH;
+      if (S::HALVES || tid < SW) {
+        const int col = tid % SW, y0 = VR * (tid / SW);
+        const float* src = ring + c * RING * SW + col;
+        float w[VR + 2 * R], s[VR];
+#pragma unroll
+        for (int r = 0; r < VR + 2 * R; ++r) w[r] = src[((TH * k + y0 + r) & (RING - 1)) * SW];
+        // each sum in tap order; the VR independent chains interleave
+#pragma unroll
+        for (int y = 0; y < VR; ++y) s[y] = w[y];
+#pragma unroll
+        for (int d = 1; d <= 2 * R; ++d)
+#pragma unroll
+          for (int y = 0; y < VR; ++y) s[y] += w[y + d];
+#pragma unroll
+        for (int y = 0; y < VR; ++y) vs[(y0 + y) * VS + col] = s[y];
+      }
+      __syncthreads();  // also: plane c - 1's horizontal is done with the other buffer
+      if (tid < RUNS) {  // horizontal: 4 outputs of a row from 20 values
+        const float* row = vs + (tid / (TW / 4)) * VS + 4 * (tid % (TW / 4));
+        float w[20];
+#pragma unroll
+        for (int q = 0; q < 5; ++q) {
+          const float4 f = *reinterpret_cast<const float4*>(row + 4 * q);
+          w[4 * q] = f.x;
+          w[4 * q + 1] = f.y;
+          w[4 * q + 2] = f.z;
+          w[4 * q + 3] = f.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[c][i] = w[RMAX - R + i];
+#pragma unroll
+        for (int d = 1; d <= 2 * R; ++d)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[c][i] += w[RMAX - R + i + d];
+      }
+    }
+
+    const int y = ys + TH * k + tid / (TW / 4);
+    const int xb = x0 + 4 * (tid % (TW / 4));
+    if (tid >= RUNS || y >= ye) continue;
+    float dx[4], dy[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // the plain version's roundings: no contraction into FMAs
+      const float g11 = __fmul_rn(acc[0][i], inv_area);
+      const float g12 = __fmul_rn(acc[1][i], inv_area);
+      const float g22 = __fmul_rn(acc[2][i], inv_area);
+      const float h1 = __fmul_rn(acc[3][i], inv_area);
+      const float h2 = __fmul_rn(acc[4][i], inv_area);
+      const float idet = 1.0f / (__fmul_rn(g11, g22) - __fmul_rn(g12, g12) + 1e-3f);
+      dx[i] = __fmul_rn(__fmul_rn(g11, h2) - __fmul_rn(g12, h1), idet);
+      dy[i] = __fmul_rn(__fmul_rn(g22, h1) - __fmul_rn(g12, h2), idet);
+    }
+    float* ox = out + (long long)p * 2 * hw + (long long)y * W + xb;
+    float* oy = ox + hw;
+    if (vec && xb + 4 <= W) {
+      *reinterpret_cast<float4*>(ox) = make_float4(dx[0], dx[1], dx[2], dx[3]);
+      *reinterpret_cast<float4*>(oy) = make_float4(dy[0], dy[1], dy[2], dy[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (xb + i < W) {
+          ox[i] = dx[i];
+          oy[i] = dy[i];
+        }
+      }
+    }
   }
+}
+
+template <int R, int TW>
+int launch_tw(const float* m, float* flow, int P, int H, int W, float inv_area, bool vec,
+              cudaStream_t stream) {
+  constexpr size_t smem = Strip<TW>::smem;
+  // the opt-in above 48 KB, once per kernel function
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      box_blur_solve_kernel<R, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  static int slots = 0;  // resident blocks the card holds
+  if (slots == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, box_blur_solve_kernel<R, TW>, NT, smem);
+    slots = sms * max(per_sm, 1);
+  }
+  // The run of steps a block walks: a block's time goes with the rows it
+  // loads (run TH + 2R), and the launch takes whole waves of ``slots``
+  // blocks, so take the run with the fewest rows across its waves.
+  const int strips = (W + TW - 1) / TW, steps = (H + TH - 1) / TH;
+  int run = steps;
+  long long best = -1;
+  for (int r = 1; r <= steps; ++r) {
+    const long long blocks = (long long)P * strips * ((steps + r - 1) / r);
+    const long long cost = (blocks + slots - 1) / slots * (TH * r + 2 * R);
+    if (best < 0 || cost < best) best = cost, run = r;
+  }
+  const int seg = TH * run;
+  dim3 grid((unsigned)strips, (unsigned)((H + seg - 1) / seg), (unsigned)P);
+  box_blur_solve_kernel<R, TW><<<grid, NT, smem, stream>>>(m, flow, H, W, seg, inv_area, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch(const float* m, float* flow, int P, int H, int W, float inv_area, bool vec,
+           cudaStream_t stream) {
+  // the strip width that wastes fewer columns; 112 on a tie
+  if ((W + 111) / 112 * 112 <= (W + 127) / 128 * 128)
+    return launch_tw<R, 112>(m, flow, P, H, W, inv_area, vec, stream);
+  return launch_tw<R, 128>(m, flow, P, H, W, inv_area, vec, stream);
 }
 
 }  // namespace
 
-// m: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32; winsize odd.
+// m: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32; winsize odd, at most 17.
 extern "C" int relax_box_blur_solve(const void* m, void* flow, int P, int H, int W,
                                     int winsize, void* stream) {
-  const int r = winsize / 2;
-  const size_t smem = sizeof(float) * (size_t)((TH + 2 * r) + TH) * (TW + 2 * r);
-  dim3 grid((unsigned)((W + TW - 1) / TW), (unsigned)((H + TH - 1) / TH), (unsigned)P);
-  dim3 block(TW, TY);
-  box_blur_solve_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const float*)m, (float*)flow, H, W, r, 1.0f / (float)(winsize * winsize));
-  return (int)cudaGetLastError();
+  if (winsize < 1 || winsize % 2 != 1 || winsize / 2 > RMAX) return (int)cudaErrorInvalidValue;
+  const float* mi = (const float*)m;
+  float* fo = (float*)flow;
+  // 16-byte loads and stores need 16-byte aligned rows
+  const bool vec = W % 4 == 0 && ((uintptr_t)m | (uintptr_t)flow) % 16 == 0;
+  const float inv_area = (float)(1.0 / (double)(winsize * winsize));
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (winsize / 2) {
+    case 0: return launch<0>(mi, fo, P, H, W, inv_area, vec, s);
+    case 1: return launch<1>(mi, fo, P, H, W, inv_area, vec, s);
+    case 2: return launch<2>(mi, fo, P, H, W, inv_area, vec, s);
+    case 3: return launch<3>(mi, fo, P, H, W, inv_area, vec, s);
+    case 4: return launch<4>(mi, fo, P, H, W, inv_area, vec, s);
+    case 5: return launch<5>(mi, fo, P, H, W, inv_area, vec, s);
+    case 6: return launch<6>(mi, fo, P, H, W, inv_area, vec, s);
+    case 7: return launch<7>(mi, fo, P, H, W, inv_area, vec, s);
+    default: return launch<8>(mi, fo, P, H, W, inv_area, vec, s);
+  }
 }

@@ -5,7 +5,8 @@ Counterpart of the Pallas kernel ``relaxtpu/ops/attention.py::_mha_kernel``
 ``relaxtpu/models/vit.py:60-64``: scores accumulated in f32, padded keys
 masked, softmax in f32, probabilities cast to the activation type, P.V
 accumulated in f32 and written in the activation type.  K3
-(``csrc/attention.cu``) keeps the score rows on chip.
+(``csrc/attention.cu``) keeps whole score rows on chip: tensor-core
+``mma.sync`` products in bf16, register-blocked FMAs in f32.
 
 ``mha`` launches K3 for CUDA tensors and runs the plain PyTorch version for
 CPU tensors.  Layout is token-major (B, N, H, D), as in the JAX package.
@@ -17,7 +18,7 @@ import torch
 
 from relaxtpu_torch import _native
 
-_MAX_TOKENS = 256  # K3 keeps up to 8 scores per lane in registers
+_MAX_TOKENS = 256  # K3 keeps whole score rows on chip
 _HEAD_DIMS = (32, 64)
 _ENTRY = {torch.float32: "relax_mha_f32", torch.bfloat16: "relax_mha_bf16"}
 
@@ -32,9 +33,10 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """Attention over (B, N, H, D) -> (B, N, H, D) contiguous.
 
-    On CUDA, q, k and v must share their strides, with (H, D) dense: the
-    column slices of one packed qkv projection qualify, as do contiguous
-    tensors.  CPU tensors take the plain version.
+    On CUDA, q, k and v must share their strides, with (H, D) dense and
+    every token row 16-byte aligned (K3 stages rows with 16-byte copies):
+    the column slices of one packed qkv projection qualify, as do
+    contiguous tensors.  CPU tensors take the plain version.
     """
     if q.device.type == "cpu":
         return mha_plain(q, k, v, scale)
@@ -47,8 +49,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torc
     if q.stride(3) != 1 or q.stride(2) != d:
         raise ValueError(f"the (H, D) axes must be dense, got strides {q.stride()}")
     if not 1 <= n <= _MAX_TOKENS or d not in _HEAD_DIMS:
-        raise ValueError(f"K3 takes N <= {_MAX_TOKENS} and D in {_HEAD_DIMS}, got N={n}, D={d}")
-    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+        raise ValueError(f"K3 takes 1 <= N <= {_MAX_TOKENS} and D in {_HEAD_DIMS}, got N={n}, D={d}")
+    size = q.element_size()
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or (q.stride(0) * size) % 16 or (q.stride(1) * size) % 16:
+        raise ValueError(f"K3 needs 16-byte aligned token rows: pointers and the B and N strides "
+                         f"in bytes multiples of 16, got strides {q.stride()}")
+    o = q.new_empty((b, n, h, d))  # new_empty skips torch.empty's argument parsing on this hot path
     _native.launch(
         _ENTRY[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, n, h, d, q.stride(0), q.stride(1), float(scale),

@@ -4,8 +4,9 @@ Counterpart of the Pallas kernel ``relaxtpu/ops/boxsolve.py::_box_solve_kernel``
 which computes ``relaxtpu/ops/flow.py::_update_flow`` (``flow.py:318-337``):
 a winsize x winsize replicate-border box sum of the five normal-equation
 planes, times 1/winsize^2, then the per-pixel 2x2 solve.  K2
-(``csrc/boxsolve.cu``) keeps the box sums in shared memory and registers
-and writes only the two flow planes.
+(``csrc/boxsolve.cu``) forms the direct sums from registers, in the plain
+version's tap order, and writes only the two flow planes.  It takes an odd
+winsize up to ``MAX_WINSIZE``.
 
 ``box_blur_solve`` launches K2 for CUDA tensors and runs the plain PyTorch
 version for CPU tensors: M (P, 5, H, W) f32 -> flow (P, 2, H, W) f32.
@@ -17,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from relaxtpu_torch import _native
+
+MAX_WINSIZE = 17  # K2's halo span holds a radius of at most 8
 
 
 def box_sum_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
@@ -51,11 +54,13 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
         raise ValueError("box window must be odd")
     if m.device.type == "cpu":
         return box_blur_solve_plain(m, winsize)
+    if winsize > MAX_WINSIZE:
+        raise ValueError(f"K2 takes an odd winsize <= {MAX_WINSIZE}, got {winsize}")
     _native.check_cuda_input(m, "m", torch.float32, 4)
     p, c, h, w = m.shape
     if c != 5:
         raise ValueError(f"M must be the 5 normal-equation planes, got shape {tuple(m.shape)}")
-    flow = torch.empty((p, 2, h, w), dtype=torch.float32, device=m.device)
+    flow = m.new_empty((p, 2, h, w))  # new_empty skips torch.empty's argument parsing on this hot path
     _native.launch("relax_box_blur_solve", m.data_ptr(), flow.data_ptr(), p, h, w, winsize)
     box_blur_solve.launches += 1
     return flow

@@ -21,7 +21,8 @@ def _run(q, k, v, dtype_j, dtype_t, scale):
     return np.asarray(want, np.float32), got.float().numpy()
 
 
-@pytest.mark.parametrize("b,n,h,d", [(2, 197, 12, 64), (1, 17, 4, 32), (3, 128, 2, 64)])
+@pytest.mark.parametrize("b,n,h,d", [(2, 197, 12, 64), (1, 17, 4, 32), (3, 128, 2, 64),
+                                     (1, 1, 2, 64), (2, 256, 2, 32), (1, 208, 3, 64)])
 def test_mha_plain_matches_pallas_f32(rng, b, n, h, d):
     q, k, v = (rng.normal(size=(b, n, h, d)).astype(np.float32) for _ in range(3))
     want, got = _run(q, k, v, jnp.float32, torch.float32, d**-0.5)

@@ -22,7 +22,7 @@ from relaxtpu.ops.boxsolve import box_blur_solve_pallas
 from relaxtpu.ops.flow import _poly_expansion, _update_flow, _update_matrices, _warp_exact
 from relaxtpu.ops.flow import farneback_flow as jax_flow
 from relaxtpu.ops.warp import warp_planes_banded_pallas
-from relaxtpu_torch.ops.boxsolve import box_blur_solve
+from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, warp_planes_plain
 
@@ -83,7 +83,7 @@ def test_warp_plain_matches_exact_and_banded_pallas(rng):
     np.testing.assert_allclose(got[0], banded, rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("h,w", [(120, 160), (67, 131)])
+@pytest.mark.parametrize("h,w", [(120, 160), (67, 131), (16, 20)])
 def test_box_blur_solve_plain_matches_pallas_and_xla(rng, h, w):
     m = realistic_m(rng, 2, h, w)
     got = box_blur_solve(T(m), 15).numpy()
@@ -93,6 +93,15 @@ def test_box_blur_solve_plain_matches_pallas_and_xla(rng, h, w):
     np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, xla, rtol=1e-4, atol=1e-4)
     assert box_blur_solve.launches == 0
+
+
+def test_box_blur_solve_refuses_a_window_past_the_kernels_largest():
+    """Off the CPU, windows above K2's largest raise before any launch (a
+    meta tensor stands in for a CUDA one); the plain version takes any."""
+    with pytest.raises(ValueError, match=f"winsize <= {MAX_WINSIZE}"):
+        box_blur_solve(torch.empty((1, 5, 8, 8), device="meta"), MAX_WINSIZE + 2)
+    m = torch.rand((1, 5, 8, 8), generator=torch.Generator().manual_seed(0))
+    assert box_blur_solve(m, MAX_WINSIZE + 2).shape == (1, 2, 8, 8)
 
 
 def textured(rng, h, w, sigma=3.0):
