@@ -37,3 +37,12 @@ def default_dtype(device: torch.device, bf16: bool | None) -> torch.dtype:
     if bf16 is None:
         bf16 = device.type == "cuda"
     return torch.bfloat16 if bf16 else torch.float32
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without blocking the host: on CUDA it is
+    copied through pinned memory (PyTorch's host allocator keeps the pinned
+    block until the copy is done); on the CPU it is returned as it is."""
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,19 +1,33 @@
-"""The per-video feature pipeline: frames -> the 35,203-dim vector.
+"""The feature pipeline: frames -> the 35,203-dim vector, for one video or many.
 
-Counterpart of ``relaxtpu/features/pipeline.py:52-191`` (``_video_vec`` and
-``_video_vec_i420``).  Per video, on the device:
+Counterpart of ``relaxtpu/features/pipeline.py:133-582``.  On the device:
 
 - resize the sampled frames to 224x224 for the backbones (linear and
   lanczos3, both antialiased, quantised to 8-bit levels);
 - per pair (a batch axis): absdiff, motion-ranked fragments, Farneback flow
   (kernels K1 and K2), flow image, flow fragment, merge;
-- one ResNet-50 forward and one ViT forward over all F + 2P images
-  (ViT attention is kernel K3);
+- ResNet-50 and ViT forwards over frames and fragments (ViT attention is
+  kernel K3);
 - means over the rows into the frozen 35,203 layout.
 
-PyTorch runs eagerly, so there is no shape bucketing: the means are plain
-means over the real rows, which is what the JAX package's masked means over
-its padded rows compute.
+Three programs share these stages:
+
+- one video (``video_feature_async_i420``): one backbone batch of F + 2P
+  images;
+- many videos of one resolution (``video_features_batch_i420``): the
+  videos' rows concatenated ragged, the flow over the flat pair axis in
+  chunks of ``max_pair_batch`` pairs, one backbone batch of sum(F) +
+  2 sum(P) images, per-video means;
+- a long or high-resolution video, with more pairs than ``max_pair_batch``:
+  the frames once, then one backbone batch per chunk of pairs, the sums
+  added on the device.
+
+The I420 entry points upload through pinned memory without blocking and
+return the vector on the device without waiting for it, so the host can
+decode the next video while this one computes.  All work stays on the
+current stream.  PyTorch runs eagerly, so nothing is padded to shape
+buckets: the means are plain means over the real rows, which is what the
+JAX package's masked means over its padded rows compute.
 """
 
 from __future__ import annotations
@@ -41,9 +55,44 @@ FARNEBACK_PARAMS = dict(
     pyr_scale=0.5, levels=3, winsize=15, iterations=3, poly_n=5, poly_sigma=1.2
 )
 
+# The working-set model behind max_pair_batch (derivation in PERF.md).
+# FLOW_LIVE_PLANES: the f32 planes of the finest pyramid level that
+# farneback_flow holds a pair at its peak (46.5 measured with
+# torch.cuda.max_memory_allocated at 1080x1920 with 16 pairs, chip_smoke.py
+# phase 3), rounded up.  BACKBONE_PEAK_BYTES: the backbones' peak, weights
+# included, over 172 images in f32 (2.86 GB measured, chip_smoke.py phase
+# 6), rounded up; the rest of the card is the flow's budget.  Both checks
+# fail the chip run if a measurement exceeds its constant.  The CPU has no
+# such limit and takes a fixed budget.
+FLOW_LIVE_PLANES = 48
+BACKBONE_PEAK_BYTES = 3e9
+CPU_FLOW_BUDGET = 8.5e9
+MAX_PAIR_BATCH = 16  # the JAX package's cap, so both send a video down the same path
+
+
+def prev_frame_runs(n_frames, n_pairs, start: int, stop: int) -> list[tuple[int, int]]:
+    """Row ranges of the concatenated frames that hold the first frames of
+    the flat pairs ``start..stop-1``: a pair's first frame is its video's
+    sampled frame of the same index (the reference's sampling)."""
+    runs = []
+    f0 = p0 = 0
+    for nf, npair in zip(n_frames, n_pairs):
+        lo, hi = max(start, p0), min(stop, p0 + npair)
+        if lo < hi:
+            runs.append((f0 + lo - p0, f0 + hi - p0))
+        f0, p0 = f0 + nf, p0 + npair
+    return runs
+
+
+def take_rows(x: torch.Tensor, runs) -> torch.Tensor:
+    """The rows of ``x`` in ``runs``: a view for one run, a copy for more."""
+    if len(runs) == 1:
+        return x[runs[0][0] : runs[0][1]]
+    return torch.cat([x[a:b] for a, b in runs])
+
 
 class FeatureExtractor:
-    """Backbones on one device plus the per-video program.
+    """Backbones on one device plus the per-video programs.
 
     Parameters
     ----------
@@ -67,8 +116,19 @@ class FeatureExtractor:
         self.vit.load_state_dict(vit_state)
         for net in (self.resnet, self.vit):
             net.to(device=self.device, dtype=dtype).eval()
+        if self.device.type == "cuda":
+            total = torch.cuda.get_device_properties(self.device).total_memory
+            self.flow_budget = total - BACKBONE_PEAK_BYTES
+        else:
+            self.flow_budget = CPU_FLOW_BUDGET
 
-    # ---------------------------------------------------------------- frames
+    def max_pair_batch(self, h: int, w: int) -> int:
+        """Most pairs the flow stage takes at once at (h, w): the flow's
+        budget over its live planes a pair, capped at 16."""
+        per_pair = h * w * 4 * FLOW_LIVE_PLANES
+        return max(1, min(MAX_PAIR_BATCH, int(self.flow_budget // per_pair)))
+
+    # ---------------------------------------------------------------- stages
     def _backbone_inputs(self, bgr_u8: torch.Tensor, resize: bool):
         """(B, H, W, 3) uint8 BGR -> ResNet and ViT inputs (B, 3, 224, 224)."""
         rgb = bgr_u8.flip(-1).permute(0, 3, 1, 2).to(torch.float32) / 255.0
@@ -79,7 +139,6 @@ class FeatureExtractor:
             rgb_rn = rgb_vit = rgb
         return resnet_preprocess(rgb_rn).to(self.dtype), rgb_vit.to(self.dtype)
 
-    # ----------------------------------------------------------------- pairs
     @staticmethod
     def _fragments(prev: torch.Tensor, nxt: torch.Tensor):
         """(P, H, W, 3) uint8 pairs -> ori and merged fragments (P, 224, 224, 3)."""
@@ -92,47 +151,132 @@ class FeatureExtractor:
         flow_frag = gather_fragment(flow_img, top_patch_indices(patch_scores(flow_img)))
         return ori_frag, merge_fragments(diff_frag, flow_frag)
 
-    # ----------------------------------------------------------------- video
-    @torch.inference_mode()
-    def _video_vec(self, frames: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
-        """Device uint8 BGR stacks -> (35203,) f32 on the device.  The full
-        frames and both fragment stacks go through each backbone as ONE
-        batch of F + 2P images."""
-        f, p = frames.shape[0], prev.shape[0]
+    def _backbones(self, x_rn: torch.Tensor, x_vit: torch.Tensor):
+        """-> ResNet layer stack (B, 13120), ResNet pool (B, 2051) and ViT
+        stats (B, 2304), f32."""
+        taps = self.resnet(x_rn)
+        return layer_stack_feature(taps), resnet_pool_feature(taps["avgpool"]), self.vit(x_vit)
+
+    @staticmethod
+    def _fragment_rows(stack, pool, vit, p: int):
+        """Backbone rows of p ori then p merged fragments -> frag_resnet
+        (p, 15171) and frag_vit (p, 4608)."""
+        return torch.cat([stack[:p], pool[p:]], dim=-1), torch.cat([vit[:p], vit[p:]], dim=-1)
+
+    # -------------------------------------------------------------- programs
+    def _videos_vec(self, frames, pairs, n_frames, n_pairs, chunk: int) -> torch.Tensor:
+        """V videos -> (V, 35203) f32 on the device.
+
+        ``frames``: the videos' sampled frames concatenated, (sum F, H, W, 3)
+        uint8 BGR; ``pairs(start, stop)`` gives the BGR (prev, next) of the
+        flat pairs ``start..stop-1``.  The flow stage runs over the flat
+        pair axis in chunks of ``chunk`` pairs (0: one chunk); each backbone
+        sees ONE batch of sum(F) + 2 sum(P) images.
+        """
+        f, p = sum(n_frames), sum(n_pairs)
+        step = chunk or p
+        ori, merged = [], []
+        for s in range(0, p, step):
+            o, m = self._fragments(*pairs(s, min(s + step, p)))
+            ori.append(o)
+            merged.append(m)
         x_rn_f, x_vit_f = self._backbone_inputs(frames, resize=True)
-        ori, merged = self._fragments(prev, nxt)
-        x_rn_p, x_vit_p = self._backbone_inputs(torch.cat([ori, merged]), resize=False)
-        taps = self.resnet(torch.cat([x_rn_f, x_rn_p]))
-        stack_all = layer_stack_feature(taps)
-        pool_all = resnet_pool_feature(taps["avgpool"])
-        vit_all = self.vit(torch.cat([x_vit_f, x_vit_p]))
-        frag_rn = torch.cat([stack_all[f : f + p], pool_all[f + p :]], dim=-1)
-        frag_vit = torch.cat([vit_all[f : f + p], vit_all[f + p :]], dim=-1)
-        return torch.cat(
-            [stack_all[:f].mean(0), vit_all[:f].mean(0), frag_rn.mean(0), frag_vit.mean(0)]
-        )
+        x_rn_p, x_vit_p = self._backbone_inputs(torch.cat(ori + merged), resize=False)
+        stack, pool, vit = self._backbones(torch.cat([x_rn_f, x_rn_p]), torch.cat([x_vit_f, x_vit_p]))
+        frag_rn, frag_vit = self._fragment_rows(stack[f:], pool[f:], vit[f:], p)
+        segments = zip(stack[:f].split(n_frames), vit[:f].split(n_frames),
+                       frag_rn.split(n_pairs), frag_vit.split(n_pairs))
+        return torch.stack([torch.cat([x.mean(0) for x in seg]) for seg in segments])
 
-    def _to_device(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _video_vec_chunked(self, frames, pairs, n_pairs: int, chunk: int) -> torch.Tensor:
+        """One video with more pairs than the flow stage takes at once ->
+        (35203,): the frames' backbone batch once, then fragments and
+        backbones per chunk of ``chunk`` pairs, the pairs' rows summed on the
+        device."""
+        stack, _, vit = self._backbones(*self._backbone_inputs(frames, resize=True))
+        sum_rn = sum_vit = 0.0
+        for s in range(0, n_pairs, chunk):
+            ori, merged = self._fragments(*pairs(s, min(s + chunk, n_pairs)))
+            x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), resize=False)
+            frag_rn, frag_vit = self._fragment_rows(*self._backbones(x_rn, x_vit), len(ori))
+            sum_rn = sum_rn + frag_rn.sum(0)
+            sum_vit = sum_vit + frag_vit.sum(0)
+        return torch.cat([stack.mean(0), vit.mean(0), sum_rn / n_pairs, sum_vit / n_pairs])
 
-    def video_feature(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8) -> np.ndarray:
-        """(F, H, W, 3), (P, H, W, 3), (P, H, W, 3) uint8 BGR -> (35203,) f32."""
-        vec = self._video_vec(
-            self._to_device(frames_bgr_u8), self._to_device(prev_bgr_u8),
-            self._to_device(next_bgr_u8),
-        )
-        out = vec.cpu().numpy()
-        assert out.shape == (TOTAL_FEATURE_DIM,)
-        return out
+    # ----------------------------------------------------------------- input
+    def _upload(self, arrays) -> torch.Tensor:
+        """Concatenate uint8 stacks along their first axis into one host
+        buffer and copy it to the device without blocking.  On CUDA the
+        buffer is pinned: PyTorch's host allocator keeps the block until the
+        copy is done, so the caller may drop it at once."""
+        arrays = [np.asarray(a) for a in arrays]
+        if any(a.dtype != np.uint8 for a in arrays):
+            raise ValueError("frame stacks must be uint8")
+        host = torch.empty((sum(len(a) for a in arrays), *arrays[0].shape[1:]), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        np.concatenate(arrays, out=host.numpy())
+        return host.to(self.device, non_blocking=True)
+
+    def _i420_pairs(self, frames, nbuf, h: int, w: int, n_frames, n_pairs):
+        """``pairs(start, stop)`` over device I420 successor frames: the
+        first frames are rows of ``frames``, the second ones are converted a
+        chunk at a time."""
+        def pairs(start: int, stop: int):
+            prev = take_rows(frames, prev_frame_runs(n_frames, n_pairs, start, stop))
+            return prev, yuv420_to_bgr(*unpack_i420(nbuf[start:stop], h, w))
+        return pairs
+
+    # ------------------------------------------------------------ public API
+    @torch.inference_mode()
+    def video_feature_async_i420(self, frames_i420, next_i420, h: int, w: int) -> torch.Tensor:
+        """Packed I420 stacks (F, H*W*3/2) and (P, H*W*3/2) uint8 -> the
+        (35203,) f32 vector on the device, enqueued without waiting for it.
+
+        The two stacks go up once (1.5 bytes a pixel) and are converted to
+        BGR on the device, bit-identical to the host converter.  The pairs'
+        first frames are the sampled frames, so prev is a prefix of frames.
+        A video with more pairs than ``max_pair_batch`` takes the chunked
+        path.
+        """
+        n_frames, n_pairs = len(frames_i420), len(next_i420)
+        fbuf, nbuf = self._upload([frames_i420]), self._upload([next_i420])
+        frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
+        pairs = self._i420_pairs(frames, nbuf, h, w, [n_frames], [n_pairs])
+        chunk = self.max_pair_batch(h, w)
+        if n_pairs > chunk:
+            return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
+        return self._videos_vec(frames, pairs, [n_frames], [n_pairs], 0)[0]
+
+    @torch.inference_mode()
+    def video_features_batch_i420(self, frames_i420_list, next_i420_list, h: int, w: int,
+                                  chunk: int | None = None) -> torch.Tensor:
+        """Many videos of one resolution -> (V, 35203) f32 on the device,
+        enqueued without waiting for it.
+
+        Each video keeps its own frame and pair counts: the rows are
+        concatenated ragged (two uploads for the whole batch) and each
+        video's means are over its own rows.  The flow runs over the flat
+        pair axis in chunks of ``chunk`` pairs: ``max_pair_batch(h, w)`` by
+        default, 0 for one chunk.
+        """
+        n_frames = [len(a) for a in frames_i420_list]
+        n_pairs = [len(a) for a in next_i420_list]
+        fbuf, nbuf = self._upload(frames_i420_list), self._upload(next_i420_list)
+        frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
+        pairs = self._i420_pairs(frames, nbuf, h, w, n_frames, n_pairs)
+        if chunk is None:
+            chunk = self.max_pair_batch(h, w)
+        return self._videos_vec(frames, pairs, n_frames, n_pairs, chunk)
 
     def video_feature_i420(self, frames_i420, next_i420, h: int, w: int) -> np.ndarray:
-        """Packed I420 stacks (F, H*W*3/2) and (P, H*W*3/2) uint8 -> (35203,).
+        """``video_feature_async_i420`` and the fetch -> (35203,) f32 numpy."""
+        return self.video_feature_async_i420(frames_i420, next_i420, h, w).cpu().numpy()
 
-        Uploads the two packed stacks (1.5 bytes a pixel) and converts to BGR
-        on the device, bit-identical to the host converter.  The pairs' first
-        frames are the sampled frames, so prev is a prefix of frames.
-        """
-        frames = yuv420_to_bgr(*unpack_i420(self._to_device(frames_i420), h, w))
-        nxt = yuv420_to_bgr(*unpack_i420(self._to_device(next_i420), h, w))
-        vec = self._video_vec(frames, frames[: nxt.shape[0]], nxt)
-        return vec.cpu().numpy()
+    @torch.inference_mode()
+    def video_feature(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8) -> np.ndarray:
+        """(F, H, W, 3), (P, H, W, 3), (P, H, W, 3) uint8 BGR -> (35203,) f32."""
+        frames, prev, nxt = (self._upload([a]) for a in (frames_bgr_u8, prev_bgr_u8, next_bgr_u8))
+        vec = self._videos_vec(frames, lambda s, e: (prev[s:e], nxt[s:e]),
+                               [len(frames)], [len(nxt)], 0)[0].cpu().numpy()
+        assert vec.shape == (TOTAL_FEATURE_DIM,)
+        return vec

@@ -9,8 +9,12 @@ module sees it there).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
+
+from relaxtpu_torch.device import upload
 
 RESNET_TAPS = (
     "conv1",
@@ -26,10 +30,15 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 _STAGES = ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2))
 
 
+@functools.lru_cache(maxsize=8)
+def _imagenet_stats(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(2, 3, 1, 1) mean and std, copied to the device once without blocking."""
+    return upload(torch.tensor([IMAGENET_MEAN, IMAGENET_STD], dtype=dtype)[..., None, None], device)
+
+
 def resnet_preprocess(rgb01: torch.Tensor) -> torch.Tensor:
     """ImageNet normalisation of (B, 3, H, W) RGB in [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=rgb01.dtype, device=rgb01.device)[:, None, None]
-    std = torch.tensor(IMAGENET_STD, dtype=rgb01.dtype, device=rgb01.device)[:, None, None]
+    mean, std = _imagenet_stats(rgb01.dtype, rgb01.device)
     return (rgb01 - mean) / std
 
 

@@ -83,8 +83,10 @@ def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Te
     """
 
     def upsample(c):
-        c = c.to(torch.float32)
-        return c.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+        # a broadcast, not repeat_interleave: no output size to work out
+        lead, (hc, wc) = c.shape[:-2], c.shape[-2:]
+        c = c.to(torch.float32)[..., :, None, :, None]
+        return c.expand(*lead, hc, 2, wc, 2).reshape(*lead, 2 * hc, 2 * wc)
 
     yl = 1.164383 * (y.to(torch.float32) - 16.0)
     uu = upsample(u) - 128.0

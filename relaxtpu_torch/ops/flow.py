@@ -142,7 +142,9 @@ def farneback_flow(
     The warp is exact for any flow (``warp="exact"`` of the JAX package).
     """
     p, h, w = prev_gray.shape
-    base2 = torch.stack([prev_gray, next_gray], dim=1).to(torch.float32)  # (P, 2, H, W)
+    # (2, P, H, W): image-major, so each image's expansion is a contiguous
+    # (P, 5, H, W) block that K1 reads in place
+    base2 = torch.stack([prev_gray, next_gray]).to(torch.float32)
     flow = None
     for scale, hk, wk in pyramid_levels(h, w, pyr_scale, levels):
         sigma = (1.0 / scale - 1.0) * 0.5
@@ -150,9 +152,7 @@ def farneback_flow(
         gk = _gaussian_kernel(smooth_sz, sigma)
         im2 = _sep_correlate(base2, gk, gk, "reflect")
         im2 = resize_hw(im2, (hk, wk), "linear", antialias=False)
-        r2 = _poly_expansion(im2, poly_n, poly_sigma)  # (P, 2, 5, hk, wk)
-        r0 = r2[:, 0].contiguous()
-        r1 = r2[:, 1].contiguous()
+        r0, r1 = _poly_expansion(im2, poly_n, poly_sigma)  # 2 x (P, 5, hk, wk)
         if flow is None:
             flow = torch.zeros((p, 2, hk, wk), dtype=torch.float32, device=base2.device)
         else:

@@ -9,6 +9,11 @@ jax's own separable weight matrices in numpy (its scale-and-translate rule:
 half-pixel centres, the kernel widened by 1/scale when downsampling with
 antialias, columns renormalised, samples outside the input zeroed) and
 applies them as ``Wh @ x @ Ww^T``.
+
+Each matrix is copied to a device once, through pinned memory without
+blocking, and kept there (``device_matrix``): a resize on the device path
+makes no host-to-device copy after its first use, so it never waits for
+the device.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+
+from relaxtpu_torch.device import upload
 
 
 def _triangle(x: np.ndarray) -> np.ndarray:
@@ -55,8 +62,12 @@ def weight_matrix(in_size: int, out_size: int, method: str, antialias: bool) -> 
     return np.ascontiguousarray(np.where(inside[None, :], w, 0).astype(f32).T)
 
 
-def _matrix(in_size, out_size, method, antialias, device) -> torch.Tensor:
-    return torch.from_numpy(weight_matrix(in_size, out_size, method, antialias)).to(device)
+@functools.lru_cache(maxsize=256)
+def device_matrix(in_size: int, out_size: int, method: str, antialias: bool,
+                  device: torch.device) -> torch.Tensor:
+    """``weight_matrix`` on ``device``, built and copied once, without
+    blocking."""
+    return upload(torch.from_numpy(weight_matrix(in_size, out_size, method, antialias)), device)
 
 
 def resize_hw(
@@ -69,9 +80,9 @@ def resize_hw(
     h, w = x.shape[-2:]
     oh, ow = out_hw
     if oh != h:
-        x = torch.matmul(_matrix(h, oh, method, antialias, x.device), x)
+        x = torch.matmul(device_matrix(h, oh, method, antialias, x.device), x)
     if ow != w:
-        x = torch.matmul(x, _matrix(w, ow, method, antialias, x.device).T)
+        x = torch.matmul(x, device_matrix(w, ow, method, antialias, x.device).T)
     return x
 
 

@@ -1,7 +1,9 @@
-"""Single-video MOS prediction (counterpart of ``relaxtpu/predict.py``).
+"""MOS prediction (counterpart of ``relaxtpu/predict.py``).
 
 decode -> the 35,203 vector on the device -> imputer/scaler -> MLP -> MOS
 (rescaled to 1-5 for konvid_1k / youtube_ugc when not fine-tuned).
+``enqueue_file`` stops before the fetch, so a serving loop decodes the next
+video while the device computes this one.
 """
 
 from __future__ import annotations
@@ -39,7 +41,11 @@ class VideoQualityPredictor:
         self.mlp.to(extractor.device).eval()
 
     @torch.inference_mode()
-    def predict_feature(self, feature_35203: np.ndarray) -> float:
+    def predict_feature(self, feature_35203: np.ndarray | torch.Tensor) -> float:
+        """The (35203,) vector, numpy or a tensor on any device (a pending
+        one is fetched here) -> MOS."""
+        if isinstance(feature_35203, torch.Tensor):
+            feature_35203 = feature_35203.cpu().numpy()
         x = self.scaler.transform(feature_35203.reshape(1, -1)).astype(np.float32)
         pred = float(self.mlp(torch.from_numpy(x).to(self.extractor.device)).reshape(-1)[0])
         if self.is_finetune:
@@ -48,12 +54,19 @@ class VideoQualityPredictor:
             return float(pred_0_100_to_1_5(pred))
         return pred
 
-    def predict_file(self, path: str, framerate: float | None = None,
-                     width: int | None = None, height: int | None = None) -> float:
-        """Raw I420 ``.yuv`` file -> MOS.  The packed I420 stacks go to the
-        device and are converted there (bit-identical to the host converter,
-        so every ingest mode of the JAX package gives these frames for a
-        ``.yuv`` file)."""
+    def enqueue_file(self, path: str, framerate: float | None = None,
+                     width: int | None = None, height: int | None = None) -> torch.Tensor:
+        """Decode a raw I420 ``.yuv`` file on the host and enqueue its
+        program without waiting -> the pending (35203,) vector on the
+        extractor's device (score it with :meth:`predict_feature`).  The
+        packed I420 stacks go to the device and are converted there
+        (bit-identical to the host converter, so every ingest mode of the
+        JAX package gives these frames for a ``.yuv`` file)."""
         fbuf, nbuf, h, w = decode_video_inputs_i420(path, framerate, width, height)
         log.info("decoded %d frames, %d pairs from %s", len(fbuf), len(nbuf), path)
-        return self.predict_feature(self.extractor.video_feature_i420(fbuf, nbuf, h, w))
+        return self.extractor.video_feature_async_i420(fbuf, nbuf, h, w)
+
+    def predict_file(self, path: str, framerate: float | None = None,
+                     width: int | None = None, height: int | None = None) -> float:
+        """Raw I420 ``.yuv`` file -> MOS: :meth:`enqueue_file` and the fetch."""
+        return self.predict_feature(self.enqueue_file(path, framerate, width, height))

@@ -52,9 +52,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FeatureExtractor({}, {})
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["predict", "--video", "x.yuv", "--model", "m.npz", "--imputer", "i.pkl",
-              "--scaler", "s.pkl"])
+    head = ["--model", "m.npz", "--imputer", "i.pkl", "--scaler", "s.pkl"]
+    for argv in (["predict", "--video", "x.yuv"], ["predict-batch", "--videos", "x.yuv"], ["serve"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv + head)
     assert resolve_device("cpu").type == "cpu"
 
 
