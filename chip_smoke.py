@@ -55,7 +55,34 @@ Phases (any failed check raises, so the exit code is not 0):
    time) and peak memory, and for three of them the device time of each
    pipeline stage; each kernel timed on the recorded calls of the batched
    program and of the 1080p path;
-7. print the ``kernels`` JSON line, the card line and the final status line.
+7. training of the MLP head at full width (35,203 -> 256 -> 128 -> 1), f32
+   with TF32 off, on seeded low-rank features (``x = z @ A + 0.1 noise``,
+   z in R^16, the MOS a monotone function of z plus noise, a few NaN/inf
+   entries), launch counts of K1-K3 set to 0 before and 0 after:
+   (a) ``train`` through the CLI function in-process, KoNViD-1k shape
+       (1,200 x 35,203, MOS 1-5, default ``TrainConfig``: 10 folds, 20
+       epochs, batch 256, SGD lr 0.1, SWA from epoch 14, BN) with 2
+       repeats instead of 21; median test SRCC >= ``SRCC_MIN``; the saved
+       ``.npz`` through the predictor's loader reproduces
+       ``trainer.predict`` (atol 1e-5) and scores phase 5's 540p vector
+       into a finite MOS;
+   (b) the first fold of (a) for 2 epochs (dropout 0, SWA off), same init
+       and permutations, on the card and on the CPU, with (a)'s head and
+       with (c)'s (no BN, lr 1e-2): parameters, BN buffers and epoch
+       losses within rtol 2e-3, atol 2e-4;
+   (c) ``train-lsvq``, LSVQ shape: 28,056 train x 7,400 test videos, the
+       train features read as two ``.mat`` chunks; peak device memory and
+       the host's peak RSS;
+   (d) ``finetune`` and ``finetune --zero-shot`` from (c)'s snapshot on
+       (a)'s features (min-max scaled), 2 repeats; every metric finite;
+   every epoch's step loop of (a)-(d) runs under
+   ``torch.cuda.set_sync_debug_mode("error")``; printed: ms a training step
+   at batch 256 (CUDA events over an epoch's steps, and the profiler's
+   device time over 40 steps) against its bound, the wall time of (a)'s
+   repeats and (c)'s run split into host preprocessing, device epochs,
+   per-epoch evaluation and its ``curve_fit``, the device's busy share
+   over a profiled epoch, and peak device memory;
+8. print the ``kernels`` JSON line, the card line and the final status line.
 
 Exits with 1 and prints no result when CUDA is not available.  Details go
 to ``build/chip_smoke/chip_smoke.json``.
@@ -74,15 +101,20 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import relaxtpu_torch.model.protocol as protocol_mod
+import relaxtpu_torch.model.train as train_mod
 import relaxtpu_torch.models.vit as vit_mod
 import relaxtpu_torch.ops.flow as flow_mod
 from relaxtpu_torch import _native
-from relaxtpu_torch.features.layout import segment_slices
+from relaxtpu_torch.cli import __main__ as cli
+from relaxtpu_torch.data.splits import kfold_split, split_other
+from relaxtpu_torch.features.layout import TOTAL_FEATURE_DIM, segment_slices
 from relaxtpu_torch.cli.__main__ import predict_batch, serve_loop
 from relaxtpu_torch.features import pipeline as pipeline_mod
 from relaxtpu_torch.features.pipeline import FARNEBACK_PARAMS, FeatureExtractor
@@ -91,12 +123,14 @@ from relaxtpu_torch.model.scalers import FeatureScaler
 from relaxtpu_torch.models.initutil import random_init_
 from relaxtpu_torch.models.resnet import ResNet50
 from relaxtpu_torch.models.vit import ViT
-from relaxtpu_torch.model.mlp import Mlp
+from relaxtpu_torch.model.mlp import Mlp, flax_init_
+from relaxtpu_torch.models.porters import mlp_from_jax
 from relaxtpu_torch.ops.attention import mha, mha_plain
 from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve, box_blur_solve_plain
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
 from relaxtpu_torch.predict import VideoQualityPredictor
+from relaxtpu_torch.utils.checkpoint import load_snapshot_variables
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -469,13 +503,14 @@ def run_main_path() -> dict:
         }
         del fx, pred, kernels
         torch.cuda.empty_cache()
-    cos = segment_cosines(out["bf16"].pop("vec"), out["f32"].pop("vec"))
+    vec_f32 = out["f32"].pop("vec")
+    cos = segment_cosines(out["bf16"].pop("vec"), vec_f32)
     out["bf16_vs_f32_cosine"] = cos
     for name, c in cos.items():
         print(f"  {name}: cosine(bf16, f32) = {c:.8f} (bound 0.9999)")
         if not c >= 0.9999:
             raise AssertionError(f"bf16 vector drifts from f32 on {name}: {c}")
-    return out
+    return out, vec_f32
 
 
 # ------------------------------------------------------------------ phase 6
@@ -757,12 +792,398 @@ def run_serving() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 7
+TRAIN_DEVICE = "cuda"
+TRAIN_DIR = os.path.join(WORK_DIR, "train")
+FEAT_D = TOTAL_FEATURE_DIM
+KONVID_N = 1200                      # KoNViD-1k: 1,200 videos, MOS 1-5
+LSVQ_TRAIN_N, LSVQ_TEST_N = 28056, 7400  # LSVQ's train and test splits (Ying et al., CVPR 2021)
+LATENT = 16
+SRCC_MIN = 0.8  # (a)'s floor; scripts/torch_train_rehearsal.py gives 0.978 (width 2,048) and 0.983 (8,192) on a CPU
+TRAIN_TOL = dict(rtol=2e-3, atol=2e-4)
+HEAD_STEPS = 40                      # steps of the step-time measurement
+
+
+def host_ram_bytes() -> int:
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def peak_rss_bytes() -> int:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def synthetic_features(n: int, seed: int, chunk: int = 2048) -> tuple[np.ndarray, np.ndarray]:
+    """(n, FEAT_D) f32 features ``z @ A + 0.1 noise`` and MOS in 1-5, a
+    monotone function of z plus noise, made on the device.  ``A`` and the
+    score direction are shared by every dataset (seed 100), z and the
+    noise come from ``seed``."""
+    shared = torch.Generator(device=TRAIN_DEVICE).manual_seed(100)
+    a = torch.randn((LATENT, FEAT_D), generator=shared, device=TRAIN_DEVICE)
+    w = torch.randn((LATENT,), generator=shared, device=TRAIN_DEVICE) / LATENT**0.5
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(seed)
+    x = np.empty((n, FEAT_D), np.float32)
+    mos = np.empty(n)
+    for i in range(0, n, chunk):
+        z = torch.randn((min(chunk, n - i), LATENT), generator=gen, device=TRAIN_DEVICE)
+        x[i : i + len(z)] = (z @ a + 0.1 * torch.randn((len(z), FEAT_D), generator=gen,
+                                                      device=TRAIN_DEVICE)).cpu().numpy()
+        score = torch.tanh(z @ w) + 0.1 * torch.randn(len(z), generator=gen, device=TRAIN_DEVICE)
+        mos[i : i + len(z)] = (3 + 1.8 * score.clamp(-1.1, 1.1)).double().cpu().numpy()
+    r = np.random.default_rng(seed)
+    for bad in (np.nan, np.inf, -np.inf):
+        x[r.integers(0, n, 3), r.integers(0, FEAT_D, 3)] = bad
+    return x, mos
+
+
+def write_meta(path: str, prefix: str, mos: np.ndarray) -> str:
+    with open(path, "w") as f:
+        f.write("vid,mos,framerate\n")
+        f.writelines(f"{prefix}{i},{float(m)!r},24.0\n" for i, m in enumerate(mos))
+    return path
+
+
+class Timers:
+    """Host seconds and calls of the wrapped functions, by label."""
+
+    def __init__(self):
+        self.s = collections.defaultdict(float)
+        self.n = collections.Counter()
+
+    def wrap(self, label: str, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.s[label] += time.perf_counter() - t0
+                self.n[label] += 1
+        return wrapped
+
+    def report(self, wall_s: float) -> dict:
+        out = {k: {"s": v, "calls": self.n[k]} for k, v in self.s.items()}
+        out["wall_s"] = wall_s
+        out["other_s"] = wall_s - sum(self.s.values())
+        return out
+
+
+# (owner, attribute, label) of the host-timed pieces of a training run; none
+# calls another, so their times add up
+TIMED = [(train_mod.MlpTrainer, "train_epoch", "epochs"), (train_mod.MlpTrainer, "evaluate_loss", "evaluate"),
+         (train_mod, "compute_correlation_metrics", "curve_fit"),
+         (protocol_mod, "preprocess_like_reference", "preprocess"), (cli, "_load_features", "load"),
+         (train_mod.MlpTrainer, "init_state", "init"), (train_mod.MlpTrainer, "train_model", "init"),
+         (train_mod.MlpTrainer, "update_bn", "update_bn"), (train_mod.MlpTrainer, "predict", "predict")]
+
+
+@contextlib.contextmanager
+def training_instruments(profile_epoch: int = 2):
+    """While inside: every ``MlpTrainer.epoch_steps`` runs under ``no_sync``
+    between two CUDA events; the pieces in ``TIMED`` (preprocessing,
+    epochs with their fetch, per-epoch evaluation and its ``curve_fit``,
+    ...) are timed on the host clock; epoch ``profile_epoch`` runs under
+    the profiler (its busy share)."""
+    timers, epochs, busy = Timers(), [], {}
+    steps_fn = train_mod.MlpTrainer.epoch_steps
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in TIMED]
+
+    def guarded_steps(self, model, opt, x, y, perm, gen):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with no_sync():
+            start.record()
+            out = steps_fn(self, model, opt, x, y, perm, gen)
+            end.record()
+        epochs.append((start, end, -(-len(perm) // self.cfg.batch_size)))
+        return out
+
+    def profiled(epoch_fn):
+        def epoch(self, *args):
+            if len(epochs) != profile_epoch:
+                return epoch_fn(self, *args)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = epoch_fn(self, *args)
+                wall = (time.perf_counter() - t0) * 1e3
+            kernel = sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.name.startswith(("Memcpy", "Memset"))) / 1e3
+            busy.update(epoch_wall_ms=wall, kernel_ms=kernel, busy_share=kernel / wall if kernel else None)
+            return out
+        return epoch
+
+    train_mod.MlpTrainer.epoch_steps = guarded_steps
+    for (owner, attr, label), (_, _, fn) in zip(TIMED, saved):
+        setattr(owner, attr, timers.wrap(label, profiled(fn) if attr == "train_epoch" else fn))
+    try:
+        yield timers, epochs, busy
+    finally:
+        train_mod.MlpTrainer.epoch_steps = steps_fn
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def run_cli(argv: list, what: str, profile_epoch: int = 2) -> dict:
+    """``cli.main(argv)`` in-process under ``training_instruments`` -> its
+    JSON result line, wall-time split, per-epoch step times and busy share."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with training_instruments(profile_epoch) as (timers, epochs, busy), contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    ms = [(s.elapsed_time(e), n) for s, e, n in epochs]
+    r = {"result": result, "time": timers.report(wall), "epochs": len(ms), "profiled_epoch": busy,
+         "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(f"  {what}: {json.dumps(result)}")
+    line = f"  {what}: wall {wall:.2f} s"
+    if ms:
+        r.update(epoch_ms_median=statistics.median(m for m, _ in ms), steps_per_epoch=ms[0][1],
+                 step_ms_median=statistics.median(m / n for m, n in ms))
+        line += (f"; {len(ms)} epochs of {r['steps_per_epoch']} steps, median {r['epoch_ms_median']:.3f} ms "
+                 f"an epoch, {r['step_ms_median']:.4f} ms a step by events")
+    for k, v in r["time"].items():
+        if isinstance(v, dict):
+            line += f"; {k} {v['s']:.2f} s ({v['calls']} calls)"
+    print(line + f"; other {r['time']['other_s']:.2f} s; profiled epoch {busy}; "
+          f"max_memory_allocated {r['max_memory_allocated']}")
+    return r
+
+
+def head_step_bound(bs: int = 256, d: int = FEAT_D, hid: int = 256) -> dict:
+    """Least time of one SGD step of the head, f32 without tensor cores.
+    Operations: the products of fc1 (forward, weight gradient), fc2 and fc3
+    (forward, weight and input gradients).  Bytes: the batch read once, the
+    parameters and the momentum buffers read once and written once."""
+    h2 = hid // 2
+    flops = 2 * bs * (2 * d * hid + 3 * hid * h2 + 3 * h2)
+    n_params = d * hid + hid + 2 * hid + hid * h2 + h2 + h2 + 1
+    nbytes = 4 * (bs * d + bs + 4 * n_params)
+    ms, by = bound(nbytes, flops, torch.float32)
+    return {"flops": flops, "bytes": nbytes, "bound_ms": ms, "bound_by": by}
+
+
+def head_step_time(trainer: train_mod.MlpTrainer) -> dict:
+    """ms of one training step at batch 256 (BN, SGD, dropout 0.1) over
+    ``HEAD_STEPS`` steps: CUDA events around the steps (under ``no_sync``),
+    and the profiler's device time of their kernels, its launches a step
+    and its busiest ops."""
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(3)
+    model = trainer.train_model(trainer.init_state(gen))
+    opt = train_mod.make_optimizer(trainer.cfg, model.parameters())
+    bs = trainer.cfg.batch_size
+    x = torch.rand((HEAD_STEPS * bs, FEAT_D), generator=gen, device=TRAIN_DEVICE)
+    y = 1 + 4 * torch.rand(HEAD_STEPS * bs, generator=gen, device=TRAIN_DEVICE)
+    batches = [(x[i * bs : (i + 1) * bs], y[i * bs : (i + 1) * bs]) for i in range(HEAD_STEPS)]
+
+    def steps():
+        for xb, yb in batches:
+            trainer.step(model, opt, xb, yb, gen)
+
+    steps()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with no_sync():
+        t0 = time.perf_counter()
+        start.record()
+        steps()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    ev_ms = start.elapsed_time(end) / HEAD_STEPS
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ops = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)
+    r = {"ms_events": ev_ms, "host_enqueue_ms": host_ms / HEAD_STEPS, "device_ms": dev_ms / HEAD_STEPS,
+         "launches_per_step": len(kernels) / HEAD_STEPS, "busy_share": dev_ms / wall,
+         "top_ops": [(e.key, e.self_device_time_total / 1e3 / HEAD_STEPS, e.count // HEAD_STEPS)
+                     for e in ops[:8]], **head_step_bound(bs)}
+    r["share_of_bound"] = r["bound_ms"] / r["ms_events"]
+    print(f"  step at batch {bs}: {ev_ms:.4f} ms by events ({r['host_enqueue_ms']:.4f} ms of host enqueue), "
+          f"{r['device_ms']:.4f} ms device time in {r['launches_per_step']:.1f} kernels, busy share "
+          f"{r['busy_share']:.3f}; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e9:.3f} GB) = {r['share_of_bound']:.1%} of it")
+    print(f"  busiest ops, device ms a step (calls a step): "
+          f"{[(k, round(v, 4), c) for k, v, c in r['top_ops']]}")
+    return r
+
+
+def cuda_vs_cpu_training(meta: dict, x: np.ndarray) -> dict:
+    """The first fold of (a)'s first repeat, 2 epochs, dropout 0, SWA off,
+    from one CPU init with the same permutations, on the card and on the
+    CPU: parameters, BN buffers and epoch losses within ``TRAIN_TOL``; for
+    (a)'s head (BN, lr 0.1) and for (c)'s (no BN, lr 1e-2, weight decay
+    5e-4)."""
+    x_tr, y_tr, _, _, _ = split_other(meta, x, 0.2, math.ceil(8.8))
+    x_tr, y_tr, _ = protocol_mod.preprocess_like_reference(x_tr, y_tr)
+    tr_idx, _ = kfold_split(len(x_tr), 10, 42)[0]
+    x_tr, y_tr = x_tr[tr_idx], y_tr[tr_idx]
+    perms = [np.random.default_rng(6).permutation(len(x_tr)) for _ in range(2)]
+    out = {"rows": len(x_tr)}
+    for name, kw in (("bn", {}), ("no_bn", dict(use_bn=False, initial_lr=1e-2, weight_decay=5e-4))):
+        cfg = train_mod.TrainConfig(drop_rate=0.0, use_swa=False, epochs=2, **kw)
+        init = train_mod.state_of(flax_init_(Mlp(FEAT_D, cfg.hidden_features, drop_rate=0.0, use_bn=cfg.use_bn),
+                                             torch.Generator().manual_seed(5)))
+        runs = {}
+        for dev in (TRAIN_DEVICE, "cpu"):
+            trainer = train_mod.MlpTrainer(cfg, FEAT_D, dev)
+            model = trainer.train_model(init)
+            opt = train_mod.make_optimizer(cfg, model.parameters())
+            x_dev, y_dev = trainer.to_device(x_tr), trainer.to_device(y_tr)
+            losses = []
+            for lr, perm in zip(train_mod.reference_lr_sequence(cfg), perms):
+                train_mod.set_lr(opt, lr)
+                with no_sync() if dev != "cpu" else contextlib.nullcontext():
+                    total = trainer.epoch_steps(model, opt, x_dev, y_dev, perm, torch.Generator(dev))
+                losses.append(total.item() / len(perm))
+            runs[dev] = ({k: v.cpu() for k, v in train_mod.state_of(model).items()}, losses)
+        (gpu, gl), (cpu, cl) = runs[TRAIN_DEVICE], runs["cpu"]
+        r = out[name] = {"losses": {"cuda": gl, "cpu": cl}, "max_abs_diff": {}}
+        bad = []
+        for k in cpu:
+            diff = (gpu[k] - cpu[k]).abs()
+            r["max_abs_diff"][k] = diff.max().item()
+            if not (diff <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * cpu[k].abs()).all():
+                bad.append(k)
+        if not np.allclose(gl, cl, **TRAIN_TOL):
+            bad.append("losses")
+        print(f"  (b) {name}, {len(x_tr)} rows x {FEAT_D}, 2 epochs: losses cuda {gl} cpu {cl}; largest "
+              f"|difference| { {k: f'{v:.2e}' for k, v in r['max_abs_diff'].items()} } (rtol 2e-3, atol 2e-4)")
+        if bad:
+            raise AssertionError(f"CUDA and CPU training ({name}) disagree on {bad}")
+    return out
+
+
+def run_training(vec540: np.ndarray) -> dict:
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    p = lambda name: os.path.join(TRAIN_DIR, name)  # noqa: E731
+    reset_counts()
+    out = {"host_ram_bytes": host_ram_bytes()}
+
+    print(f"  data: KoNViD-1k shape {KONVID_N} x {FEAT_D}, LSVQ shape {LSVQ_TRAIN_N} + {LSVQ_TEST_N}")
+    t0 = time.perf_counter()
+    x_a, mos_a = synthetic_features(KONVID_N, seed=1)
+    np.save(p("konvid.npy"), x_a)
+    write_meta(p("konvid.csv"), "k", mos_a)
+    meta_a = {"vid": np.array([f"k{i}" for i in range(KONVID_N)], dtype=object), "mos": mos_a}
+    scaled_a, _, scaler_a = protocol_mod.preprocess_like_reference(x_a, mos_a)
+    np.save(p("konvid_scaled.npy"), scaled_a)
+
+    # LSVQ: host float64 preprocessing takes about 5 copies of the train matrix
+    n_tr = LSVQ_TRAIN_N
+    need = 5.2 * 8 * (n_tr + LSVQ_TEST_N) * FEAT_D
+    if need > out["host_ram_bytes"] / 2:
+        n_tr = int(n_tr * out["host_ram_bytes"] / 2 / need)
+        print(f"  LSVQ train rows cut to {n_tr}: preprocessing needs ~{need:.3g} B, RAM {out['host_ram_bytes']}")
+    out["lsvq_train_rows"] = n_tr
+    x_c, mos_c = synthetic_features(n_tr, seed=2)
+    half = n_tr // 2
+    import scipy.io
+
+    chunks = []
+    for k, sl in enumerate((slice(0, half), slice(half, n_tr))):
+        chunks.append(p(f"lsvq_train_{k}.mat"))
+        scipy.io.savemat(chunks[-1], {"lsvq_train": x_c[sl]})
+    write_meta(p("lsvq_train.csv"), "t", (mos_c - 1) * 99 / 4 + 1)
+    del x_c
+    x_t, mos_t = synthetic_features(LSVQ_TEST_N, seed=3)
+    np.save(p("lsvq_test.npy"), x_t)
+    write_meta(p("lsvq_test.csv"), "s", (mos_t - 1) * 99 / 4 + 1)
+    del x_t
+    out["data_s"] = time.perf_counter() - t0
+    print(f"  data made and written in {out['data_s']:.1f} s")
+
+    print("  (a) train, KoNViD-1k shape, default TrainConfig, 2 repeats")
+    medians = []
+    saved_select = protocol_mod.select_median_model
+
+    def keep_median(*args):
+        medians.append(saved_select(*args))
+        return medians[-1]
+
+    protocol_mod.select_median_model = keep_median
+    try:
+        out["a"] = run_cli(["train", "--metadata-csv", p("konvid.csv"), "--features", p("konvid.npy"),
+                            "--output", p("konvid_head.npz"), "--n-repeats", "2",
+                            "--device", TRAIN_DEVICE], "(a) train")
+    finally:
+        protocol_mod.select_median_model = saved_select
+    srcc = out["a"]["result"]["median_srcc"]
+    if not srcc >= SRCC_MIN:
+        raise AssertionError(f"(a) median test SRCC {srcc} below {SRCC_MIN}")
+    # the saved head through the predictor's loader against trainer.predict
+    median = medians[0][0]
+    mlp_state = mlp_from_jax(load_snapshot_variables(p("konvid_head.npz")))
+    head = Mlp(FEAT_D, use_bn="bn1.weight" in mlp_state)
+    head.load_state_dict(mlp_state)
+    head = head.to(TRAIN_DEVICE).eval()
+    trainer = train_mod.MlpTrainer(train_mod.TrainConfig(), FEAT_D, TRAIN_DEVICE)
+    want = trainer.predict(median.snapshot, scaled_a)
+    with torch.inference_mode():
+        got = head(torch.from_numpy(scaled_a).to(TRAIN_DEVICE)).reshape(-1).cpu().numpy()
+    reload_err = float(np.abs(got - want).max())
+    mos = VideoQualityPredictor(types.SimpleNamespace(device=torch.device(TRAIN_DEVICE)), mlp_state,
+                                scaler_a).predict_feature(vec540)
+    out["a"].update(reload_max_abs_diff=reload_err, mos_540p=mos)
+    print(f"  (a) reloaded head against trainer.predict: largest |difference| {reload_err:.3e} (atol 1e-5); "
+          f"phase 5's 540p vector -> MOS {mos!r}")
+    if not reload_err <= 1e-5 or not math.isfinite(mos):
+        raise AssertionError(f"(a) reloaded head: difference {reload_err}, MOS {mos}")
+
+    print("  (b) CUDA against CPU, first fold of (a), 2 epochs, dropout 0, SWA off, (a)'s and (c)'s heads")
+    out["b"] = cuda_vs_cpu_training(meta_a, x_a)
+    del x_a
+
+    print(f"  (c) train-lsvq, {n_tr} train x {LSVQ_TEST_N} test, k-fold off, no BN, lr 1e-2, bykrcc, 20 epochs")
+    out["c"] = run_cli(["train-lsvq", "--train-metadata", p("lsvq_train.csv"), "--test-metadata",
+                        p("lsvq_test.csv"), "--train-features", *chunks, "--test-features",
+                        p("lsvq_test.npy"), "--output", p("lsvq_head.npz"), "--device", TRAIN_DEVICE],
+                       "(c) train-lsvq")
+    out["c"]["host_peak_rss_bytes"] = peak_rss_bytes()
+    print(f"  (c) host peak RSS {out['c']['host_peak_rss_bytes']} B of {out['host_ram_bytes']}")
+    if not all(math.isfinite(v) for k, v in out["c"]["result"].items() if k != "model"):
+        raise AssertionError(f"(c) metrics not finite: {out['c']['result']}")
+
+    argv = ["finetune", "--dataset", "konvid_1k", "--metadata-csv", p("konvid.csv"), "--features",
+            p("konvid_scaled.npy"), "--base-model", p("lsvq_head.npz"), "--no-bn", "--n-repeats", "2",
+            "--output", p("ft_head.npz"), "--device", TRAIN_DEVICE]
+    print("  (d) finetune and finetune --zero-shot: (c)'s head on (a)'s scaled features, 2 repeats")
+    out["d"] = run_cli(argv, "(d) finetune", profile_epoch=-1)
+    out["d_zero_shot"] = run_cli(argv + ["--zero-shot"], "(d) zero-shot", profile_epoch=-1)
+    for key in ("d", "d_zero_shot"):
+        if not all(math.isfinite(v) for v in out[key]["result"].values() if isinstance(v, float)):
+            raise AssertionError(f"({key}) metrics not finite: {out[key]['result']}")
+
+    print("  step time at full width (BN, SGD, dropout 0.1)")
+    out["step"] = head_step_time(train_mod.MlpTrainer(train_mod.TrainConfig(), FEAT_D, TRAIN_DEVICE))
+    n = counts()
+    print(f"  launches of K1, K2, K3 during training: {n} (expected none)")
+    if any(n.values()):
+        raise AssertionError(f"the training path launched {n}")
+    for name in os.listdir(TRAIN_DIR):
+        if name.endswith((".mat", ".npy")):
+            os.remove(p(name))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     card = gpu_line()
-    print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"host RAM {host_ram_bytes()} B, {os.cpu_count()} CPUs")
 
     t0 = time.perf_counter()
     _native.lib()
@@ -780,10 +1201,13 @@ def main() -> int:
     cos_cpu = check_cuda_vs_cpu()
 
     print("[5] main path: 540x960, 16 frames + 16 pairs, ResNet-50 + ViT-B/16 depth 12")
-    main_res = run_main_path()
+    main_res, vec540 = run_main_path()
 
     print("[6] serving paths: batched, streamed, 1080p chunked, serve loop")
     serving = run_serving()
+
+    print("[7] training the MLP head at full width: train, CUDA vs CPU, train-lsvq, finetune")
+    training = run_training(vec540)
 
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
@@ -812,7 +1236,7 @@ def main() -> int:
                    "build_s": build_s, "build": build_info, "kernels": kernels,
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
-                   "main_path": main_res, "serving": serving}, fh, indent=1)
+                   "main_path": main_res, "serving": serving, "training": training}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,14 @@ Example::
     python -m relaxtpu_torch.cli predict --video v.yuv --width 960 \
         --height 540 --framerate 24 --model mlp.npz \
         --imputer konvid_1k_imputer.pkl --scaler konvid_1k_scaler.pkl
+
+Training: ``train`` (repeated holdout), ``train-lsvq`` (LSVQ fixed split),
+``finetune`` (cross-dataset, or ``--zero-shot``) and ``train-cross``, with
+the JAX CLI's flags (less ``--config``) and ``--device``; each prints one
+JSON result line, as the JAX CLI does.  Example::
+
+    python -m relaxtpu_torch.cli train --metadata-csv meta.csv \
+        --features feats.npy --output mlp.npz --device cpu
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import logging
 import os
 import sys
 
+import numpy as np
 import torch
 
 from relaxtpu_torch.io.video import decode_video_inputs_i420
@@ -184,6 +193,151 @@ def cmd_serve(args):
                dict(framerate=args.framerate, width=args.width, height=args.height))
 
 
+def _grey_indices_for(args, dataset: str):
+    """Greyscale rows to drop: an explicit report, else the conventional
+    location for youtube_ugc (the only dataset the reference drops them for)."""
+    from relaxtpu_torch.data.greyscale import load_grey_indices
+
+    report = getattr(args, "greyscale_report", None)
+    if report is None and dataset == "youtube_ugc":
+        report = os.path.join(args.metadata_dir, "greyscale_report",
+                              f"{dataset.upper()}_greyscale_metadata.csv")
+        if not os.path.exists(report):
+            log.warning("youtube_ugc: no greyscale report at %s; greyscale videos "
+                        "will NOT be dropped", report)
+            return None
+    return load_grey_indices(report) if report else None
+
+
+def _load_features(paths: list[str], key: str):
+    from relaxtpu_torch.data.store import load_chunked_features, load_mat_features
+
+    if len(paths) == 1 and paths[0].endswith(".npy"):
+        return np.load(paths[0])
+    if len(paths) == 1:
+        return load_mat_features(paths[0], key)
+    return load_chunked_features(paths, key)
+
+
+def _median(results, key: str) -> float:
+    return float(np.median([getattr(r, key) for r in results]))
+
+
+def cmd_train(args):
+    from relaxtpu_torch.device import resolve_device
+    from relaxtpu_torch.io.datasets import read_metadata_csv
+    from relaxtpu_torch.model.protocol import run_repeated_holdout
+    from relaxtpu_torch.model.train import TrainConfig
+    from relaxtpu_torch.utils.checkpoint import save_snapshot
+
+    device = resolve_device(args.device)
+    meta = read_metadata_csv(args.metadata_csv)
+    features = np.load(args.features)
+    cfg = TrainConfig(
+        n_repeats=args.n_repeats, n_splits=args.n_splits, batch_size=args.batch_size,
+        epochs=args.epochs, initial_lr=args.lr, weight_decay=args.weight_decay,
+        select_criteria=args.select_criteria, use_bn=not args.no_bn, kfold=not args.no_kfold,
+    )
+    grey = _grey_indices_for(args, args.dataset)
+    if grey:
+        log.info("dropping %d greyscale videos", len(grey))
+    progress = print
+    if args.artifacts_dir:
+        # the reference's run log: hyperparameters and per-repeat results
+        from relaxtpu_torch.utils.logging import setup_logger
+
+        os.makedirs(args.artifacts_dir, exist_ok=True)
+        run_log = setup_logger("relaxtpu_torch.train", os.path.join(args.artifacts_dir, "train.log"))
+        run_log.info("config: %s", cfg)
+
+        def progress(msg):  # noqa: F811 -- to stdout and the run log
+            print(msg)
+            run_log.info(msg)
+
+    median, _, results = run_repeated_holdout(
+        meta, features, cfg, grey_indices=grey, progress=progress,
+        resume_dir=args.resume_dir, device=device,
+    )
+    save_snapshot(args.output, median.snapshot)
+    print(json.dumps({
+        "median_srcc": _median(results, "srcc"), "median_krcc": _median(results, "krcc"),
+        "median_plcc": _median(results, "plcc"), "median_rmse": _median(results, "rmse"),
+        "model": args.output,
+    }))
+
+
+def cmd_train_lsvq(args):
+    """LSVQ fixed split: k-fold off, no BN (the reference's 'simple' head)."""
+    from relaxtpu_torch.data.splits import split_lsvq
+    from relaxtpu_torch.device import resolve_device
+    from relaxtpu_torch.io.datasets import read_metadata_csv
+    from relaxtpu_torch.model.protocol import run_fixed_split
+    from relaxtpu_torch.model.train import TrainConfig
+    from relaxtpu_torch.utils.checkpoint import save_snapshot
+
+    device = resolve_device(args.device)
+    x_tr, y_tr, x_te, y_te, _ = split_lsvq(
+        read_metadata_csv(args.train_metadata), read_metadata_csv(args.test_metadata),
+        _load_features(args.train_features, args.train_key),
+        _load_features(args.test_features, args.test_key),
+    )
+    cfg = TrainConfig(
+        epochs=args.epochs, batch_size=args.batch_size, initial_lr=args.lr,
+        weight_decay=args.weight_decay, select_criteria=args.select_criteria,
+        use_bn=False, kfold=False,
+    )
+    result, _ = run_fixed_split(x_tr, y_tr, x_te, y_te, cfg, progress=print, device=device)
+    save_snapshot(args.output, result.snapshot)
+    print(json.dumps({"srcc": result.srcc, "krcc": result.krcc, "plcc": result.plcc,
+                      "rmse": result.rmse, "model": args.output}))
+
+
+def cmd_finetune(args):
+    from relaxtpu_torch.device import resolve_device
+    from relaxtpu_torch.io.datasets import read_metadata_csv
+    from relaxtpu_torch.model.protocol import FineTuneConfig, fine_tune, zero_shot_eval
+    from relaxtpu_torch.model.train import MlpTrainer, TrainConfig
+    from relaxtpu_torch.utils.checkpoint import load_snapshot, save_snapshot
+
+    device = resolve_device(args.device)
+    y = read_metadata_csv(args.metadata_csv)["mos"]
+    features = np.load(args.features)
+    base = load_snapshot(args.base_model)
+    trainer = MlpTrainer(TrainConfig(use_bn=not args.no_bn), features.shape[1], device)
+    ft = FineTuneConfig(n_repeats=args.n_repeats, epochs=args.epochs)
+    mos_is_1_5 = args.dataset in ("konvid_1k", "youtube_ugc")
+    if args.zero_shot:
+        _, results = zero_shot_eval(base, trainer, features, y, ft, mos_is_1_5=mos_is_1_5, progress=print)
+        print(json.dumps({"median_srcc": _median(results, "srcc"),
+                          "median_rmse": _median(results, "rmse"), "zero_shot": True}))
+        return
+    median, results = fine_tune(base, trainer, features, y, ft, mos_is_1_5=mos_is_1_5, progress=print)
+    save_snapshot(args.output, median.snapshot)
+    print(json.dumps({"median_srcc": _median(results, "srcc"),
+                      "median_rmse": _median(results, "rmse"), "model": args.output}))
+
+
+def cmd_train_cross(args):
+    """Train on one dataset, test on another."""
+    from relaxtpu_torch.data.splits import split_cross_dataset
+    from relaxtpu_torch.device import resolve_device
+    from relaxtpu_torch.io.datasets import read_metadata_csv
+    from relaxtpu_torch.model.protocol import run_fixed_split
+    from relaxtpu_torch.model.train import TrainConfig
+    from relaxtpu_torch.utils.checkpoint import save_snapshot
+
+    device = resolve_device(args.device)
+    x_tr, y_tr, x_te, y_te, _ = split_cross_dataset(
+        read_metadata_csv(args.train_metadata), read_metadata_csv(args.test_metadata),
+        np.load(args.train_features), np.load(args.test_features),
+        train_name=args.train_dataset, test_name=args.test_dataset,
+    )
+    cfg = TrainConfig(use_bn=not args.no_bn, epochs=args.epochs)
+    result, _ = run_fixed_split(x_tr, y_tr, x_te, y_te, cfg, progress=print, device=device)
+    save_snapshot(args.output, result.snapshot)
+    print(json.dumps({"srcc": result.srcc, "plcc": result.plcc, "rmse": result.rmse}))
+
+
 def _add_model_flags(sp) -> None:
     sp.add_argument("--video-type", default="konvid_1k")
     sp.add_argument("--model", required=True, help=".npz snapshot or reference .pth")
@@ -197,6 +351,10 @@ def _add_model_flags(sp) -> None:
                      help="bfloat16 backbones (the default on CUDA)")
     grp.add_argument("--f32", dest="bf16", action="store_false",
                      help="float32 backbones with TF32 off (strict-parity mode)")
+    _add_device_flag(sp)
+
+
+def _add_device_flag(sp) -> None:
     sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
@@ -248,6 +406,73 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--in-flight", type=int, default=2,
                     help="videos left enqueued on the device while later requests decode")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("train", help="repeated-holdout training of the MLP head")
+    sp.add_argument("--dataset", default="konvid_1k")
+    sp.add_argument("--metadata-csv", required=True)
+    sp.add_argument("--metadata-dir", default="metadata")
+    sp.add_argument("--features", required=True, help=".npy (n_videos, 35203)")
+    sp.add_argument("--output", default="model/mlp.npz")
+    sp.add_argument("--n-repeats", type=int, default=21)
+    sp.add_argument("--n-splits", type=int, default=10)
+    sp.add_argument("--batch-size", type=int, default=256)
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--lr", type=float, default=0.1)
+    sp.add_argument("--weight-decay", type=float, default=0.005)
+    sp.add_argument("--select-criteria", default="byrmse")
+    sp.add_argument("--no-bn", action="store_true")
+    sp.add_argument("--no-kfold", action="store_true")
+    sp.add_argument("--greyscale-report", default=None,
+                    help="greyscale report csv (auto-located for youtube_ugc)")
+    sp.add_argument("--resume-dir", default=None, help="per-repeat checkpoint dir")
+    sp.add_argument("--artifacts-dir", default=None,
+                    help="write train.log (hyperparameters + per-repeat results) here")
+    _add_device_flag(sp)
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("train-lsvq", help="LSVQ fixed-split training (k-fold off, no BN)")
+    sp.add_argument("--train-metadata", required=True)
+    sp.add_argument("--test-metadata", required=True)
+    sp.add_argument("--train-features", nargs="+", required=True,
+                    help=".npy or chunked .mat files (the reference ships 3 LSVQ chunks)")
+    sp.add_argument("--test-features", nargs="+", required=True)
+    sp.add_argument("--train-key", default="lsvq_train")
+    sp.add_argument("--test-key", default="lsvq_test")
+    sp.add_argument("--output", default="model/mlp_lsvq.npz")
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--batch-size", type=int, default=256)
+    sp.add_argument("--lr", type=float, default=1e-2)
+    sp.add_argument("--weight-decay", type=float, default=5e-4)
+    sp.add_argument("--select-criteria", default="bykrcc")
+    _add_device_flag(sp)
+    sp.set_defaults(fn=cmd_train_lsvq)
+
+    sp = sub.add_parser("finetune", help="cross-dataset fine-tuning of a trained head")
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--metadata-csv", required=True)
+    sp.add_argument("--features", required=True)
+    sp.add_argument("--base-model", required=True)
+    sp.add_argument("--output", default="model/mlp_ft.npz")
+    sp.add_argument("--n-repeats", type=int, default=21)
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--no-bn", action="store_true")
+    sp.add_argument("--zero-shot", action="store_true",
+                    help="score the base model on the target's test splits without fine-tuning")
+    _add_device_flag(sp)
+    sp.set_defaults(fn=cmd_finetune)
+
+    sp = sub.add_parser("train-cross", help="train on one dataset, test on another")
+    sp.add_argument("--train-dataset", default="youtube_ugc")
+    sp.add_argument("--test-dataset", default="cvd_2014")
+    sp.add_argument("--train-metadata", required=True)
+    sp.add_argument("--test-metadata", required=True)
+    sp.add_argument("--train-features", required=True)
+    sp.add_argument("--test-features", required=True)
+    sp.add_argument("--output", default="model/mlp_cross.npz")
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--no-bn", action="store_true")
+    _add_device_flag(sp)
+    sp.set_defaults(fn=cmd_train_cross)
     return p
 
 

@@ -2,7 +2,9 @@
 ``relaxtpu/model/scalers.py:17-67``; numpy only).
 
 The reference's sklearn SimpleImputer(mean) + MinMaxScaler pair is a NaN
-fill followed by an affine map, kept here as three vectors.
+fill followed by an affine map, kept here as three vectors.  ``fit`` and
+``fit_transform_like_reference`` run the JAX package's float64 operations
+in its order, so their results are bit-identical to it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,20 @@ class FeatureScaler:
     fill: np.ndarray  # imputer column means
     scale: np.ndarray  # min-max (max-min) reciprocal, zero range -> 1
     offset: np.ndarray  # -min * scale
+
+    @classmethod
+    def fit(cls, x: np.ndarray) -> "FeatureScaler":
+        """Fit like the reference's preprocess_data (nan/inf zeroed first)."""
+        x = np.array(x, dtype=np.float64, copy=True)
+        x[np.isnan(x)] = 0
+        x[np.isinf(x)] = 0
+        fill = x.mean(axis=0)
+        dmin = x.min(axis=0)
+        dmax = x.max(axis=0)
+        rng = dmax - dmin
+        rng[rng == 0.0] = 1.0  # sklearn's _handle_zeros_in_scale
+        scale = 1.0 / rng
+        return cls(fill=fill, scale=scale, offset=-dmin * scale)
 
     @classmethod
     def from_sklearn(cls, imputer, scaler) -> "FeatureScaler":
@@ -41,3 +57,10 @@ class FeatureScaler:
         if nan.any():
             x[nan] = np.broadcast_to(self.fill, x.shape)[nan]
         return x * self.scale + self.offset
+
+    def fit_transform_like_reference(self, x: np.ndarray) -> np.ndarray:
+        """preprocess_data semantics: zero nan/inf, impute, scale."""
+        x = np.array(x, dtype=np.float64, copy=True)
+        x[np.isnan(x)] = 0
+        x[np.isinf(x)] = 0
+        return self.transform(x)

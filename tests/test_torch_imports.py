@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``relaxtpu_torch`` and
-``chip_smoke`` loads no JAX, no Flax and nothing of ``relaxtpu``; entry
+``chip_smoke`` loads no JAX, no Flax, nothing of ``relaxtpu`` and neither
+sklearn nor pandas (the card's host has neither); entry
 points default to CUDA and raise without it; ``chip_smoke.py`` fails without
 a card and without the package.
 
@@ -23,7 +24,8 @@ names = [m.name for m in pkgutil.walk_packages(relaxtpu_torch.__path__, "relaxtp
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "relaxtpu"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "relaxtpu", "sklearn", "pandas"))
 print(len(names), bad)
 """
 
@@ -56,6 +58,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for argv in (["predict", "--video", "x.yuv"], ["predict-batch", "--videos", "x.yuv"], ["serve"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv + head)
+    pair = ["--train-metadata", "a.csv", "--test-metadata", "b.csv",
+            "--train-features", "a.npy", "--test-features", "b.npy"]
+    for argv in (["train", "--metadata-csv", "m.csv", "--features", "f.npy"],
+                 ["train-lsvq", *pair], ["train-cross", *pair],
+                 ["finetune", "--dataset", "konvid_1k", "--metadata-csv", "m.csv",
+                  "--features", "f.npy", "--base-model", "b.npz"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
     assert resolve_device("cpu").type == "cpu"
 
 
