@@ -82,7 +82,29 @@ Phases (any failed check raises, so the exit code is not 0):
    repeats and (c)'s run split into host preprocessing, device epochs,
    per-epoch evaluation and its ``curve_fit``, the device's busy share
    over a profiled epoch, and peak device memory;
-8. print the ``kernels`` JSON line, the card line and the final status line.
+8. extraction at full width (ResNet-50, ViT-B/16 depth 12, seeded, bf16)
+   through ``cli.main(["extract", ...])``, launch counts set to 0 before
+   each run and read after it, on four LIVE-Qualcomm-shaped raw clips
+   (1080x1920, 40 frames at 4 fps: 20 frames and 20 pairs, two chunks):
+   (a) ``--mode full`` with ``--save-mat``, every enqueue under
+       ``set_sync_debug_mode("error")``: K1 = K2 = 24 and K3 = 36 a video,
+       each stored row against ``video_feature_i420`` of its clip, the
+       ``.npy`` matrix against the rows, the ``.mat`` through
+       ``load_mat_features``, a second run that skips every video (no
+       launch, same matrix); warm ms per video of a fresh run (4 decode
+       threads, 2 videos enqueued ahead), busy share, peak memory;
+   (b) the 24 other (mode, network, layer) combinations on one clip: the
+       stored matrix's rows and width, finite values, K1-K3 launches, ms
+       per video (cold and warm) and the warm run's host time in the
+       decode and in the enqueue;
+   (c) every mode on the card against the CPU (240x320, 2 frames and 2
+       pairs, depth-2 ViT, f32 with TF32 off): cosine >= 0.99999;
+   (d) VGG-16 with seeded weights, batch 16 at 224x224: CUDA f32 against
+       CPU f32 (each tap and fc2 within 1e-4 of its max), bf16 against f32
+       (per-tap cosine >= 0.999), ms per batch by events and peak memory;
+   (e) ``--profile-dir`` writes one trace with the card's kernels in it;
+   and the phase's seconds by step;
+9. print the ``kernels`` JSON line, the card line and the final status line.
 
 Exits with 1 and prints no result when CUDA is not available.  Details go
 to ``build/chip_smoke/chip_smoke.json``.
@@ -92,11 +114,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import io
+import itertools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -114,6 +139,8 @@ import relaxtpu_torch.ops.flow as flow_mod
 from relaxtpu_torch import _native
 from relaxtpu_torch.cli import __main__ as cli
 from relaxtpu_torch.data.splits import kfold_split, split_other
+from relaxtpu_torch.data.store import FeatureStore, load_mat_features
+from relaxtpu_torch.features.ablation import AblationExtractor
 from relaxtpu_torch.features.layout import TOTAL_FEATURE_DIM, segment_slices
 from relaxtpu_torch.cli.__main__ import predict_batch, serve_loop
 from relaxtpu_torch.features import pipeline as pipeline_mod
@@ -122,6 +149,7 @@ from relaxtpu_torch.io.video import decode_video_inputs_i420
 from relaxtpu_torch.model.scalers import FeatureScaler
 from relaxtpu_torch.models.initutil import random_init_
 from relaxtpu_torch.models.resnet import ResNet50
+from relaxtpu_torch.models.vgg import VGG16
 from relaxtpu_torch.models.vit import ViT
 from relaxtpu_torch.model.mlp import Mlp, flax_init_
 from relaxtpu_torch.models.porters import mlp_from_jax
@@ -396,10 +424,10 @@ def seeded_states(vit_depth: int) -> tuple[dict, dict]:
             random_init_(ViT(depth=vit_depth), 1).state_dict())
 
 
-def synthetic_bgr(n: int, h: int, w: int, seed: int) -> np.ndarray:
-    """(n, h, w, 3) uint8: a blurred random texture panned smoothly (a few
-    px per frame, inside the band of the JAX package's banded warp) plus
-    noise, made on the device."""
+def synthetic_bgr(n: int, h: int, w: int, seed: int) -> torch.Tensor:
+    """(n, h, w, 3) uint8 on the device: a blurred random texture panned
+    smoothly (a few px per frame, inside the band of the JAX package's
+    banded warp) plus noise."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     tex = torch.rand((3, 1, h + 24, w + 24), generator=gen, device="cuda") * 255
     x = torch.arange(-6, 7, device="cuda", dtype=torch.float32)
@@ -412,19 +440,19 @@ def synthetic_bgr(n: int, h: int, w: int, seed: int) -> np.ndarray:
         ox, oy = int(8 + 6 * math.sin(i / 3)), int(8 + 5 * math.cos(i / 4))
         fr = tex[:, oy : oy + h, ox : ox + w] + torch.randn((3, h, w), generator=gen, device="cuda") * 6
         out.append(fr.clamp(0, 255).to(torch.uint8).permute(1, 2, 0))
-    return torch.stack(out).cpu().numpy()
+    return torch.stack(out)
 
 
-def bgr_to_i420(bgr: np.ndarray) -> np.ndarray:
-    """(n, h, w, 3) uint8 BGR -> packed I420 (n, h*w*3/2), BT.601 limited."""
-    img = bgr.astype(np.float32)
-    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+def bgr_to_i420(bgr: torch.Tensor) -> np.ndarray:
+    """(n, h, w, 3) uint8 BGR (on any device) -> packed I420 (n, h*w*3/2)
+    numpy, BT.601 limited."""
+    b, g, r = bgr.float().unbind(-1)
     y = 0.257 * r + 0.504 * g + 0.098 * b + 16.0
     u = -0.148 * r - 0.291 * g + 0.439 * b + 128.0
     v = 0.439 * r - 0.368 * g - 0.071 * b + 128.0
     sub = lambda c: (c[:, 0::2, 0::2] + c[:, 0::2, 1::2] + c[:, 1::2, 0::2] + c[:, 1::2, 1::2]) * 0.25  # noqa: E731
-    u8 = lambda c: np.clip(np.rint(c), 0, 255).astype(np.uint8).reshape(len(bgr), -1)  # noqa: E731
-    return np.concatenate([u8(y), u8(sub(u)), u8(sub(v))], axis=1)
+    u8 = lambda c: c.round().clamp(0, 255).to(torch.uint8).reshape(len(bgr), -1)  # noqa: E731
+    return torch.cat([u8(y), u8(sub(u)), u8(sub(v))], dim=1).cpu().numpy()
 
 
 def segment_cosines(a: np.ndarray, b: np.ndarray) -> dict:
@@ -437,7 +465,7 @@ def segment_cosines(a: np.ndarray, b: np.ndarray) -> dict:
 
 def check_cuda_vs_cpu() -> dict:
     rs, vs = seeded_states(vit_depth=2)
-    frames = synthetic_bgr(4, 240, 320, seed=5)
+    frames = synthetic_bgr(4, 240, 320, seed=5).cpu().numpy()
     f, nxt = frames[0::2], frames[1::2]
     vecs = {}
     for dev in ("cpu", "cuda"):
@@ -1177,6 +1205,292 @@ def run_training(vec540: np.ndarray) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+EXTRACT_DIR = os.path.join(WORK_DIR, "extract")
+N_EXTRACT = 4   # LIVE-Qualcomm-shaped clips: 1080x1920, 40 raw frames at 4 fps -> 20 frames, 20 pairs
+RESIDUAL = ("frame_diff", "optical_flow", "frame_diff_frag", "optical_flow_frag")
+TAPS = (("resnet50", "pool"), ("resnet50", "last_layer"), ("resnet50", "layer_stack"), ("vit", "pool"))
+WIDTH = {"pool": 2051, "last_layer": 2048, "layer_stack": 13120}
+
+
+def extraction_combinations() -> list:
+    """Every (mode, network, layer) but ``full`` that stores a distinct
+    result: 24."""
+    combos = [(m, n, lay) for m in (*RESIDUAL, "layer") for n, lay in TAPS]
+    return combos + [("layer_stack", "resnet50", "pool"), ("layer_stack", "vit", "pool"),
+                     ("fragment_layerstack", "resnet50", "pool"), ("fragment_pool", "resnet50", "pool")]
+
+
+def expected_extraction(mode: str, network: str, layer: str, frames: int, pairs: int, chunk: int,
+                        flow_calls: int, vit_calls: int):
+    """(rows, width) of the stored matrix and the launches of K1-K3 for one
+    video: the flow (``flow_calls`` of K1 and of K2: pyramid levels x
+    iterations) once per chunk of pairs, ``vit_calls`` of K3 (the ViT's
+    depth) per ViT forward (one over the frames, one per chunk of pairs)."""
+    n_chunks = -(-pairs // chunk)
+    flow = flow_calls * n_chunks if mode.startswith(("optical_flow", "fragment_")) else 0
+    if mode in ("layer", "layer_stack"):
+        rows, vit_forwards = frames, int(network == "vit")
+    else:
+        rows = pairs
+        vit_forwards = n_chunks if mode == "fragment_pool" or (mode in RESIDUAL and network == "vit") else 0
+    if mode.startswith("fragment_"):
+        width = 15171 if mode == "fragment_layerstack" else 4608
+    elif network == "vit":
+        width = 2304
+    else:
+        width = 13120 if mode == "layer_stack" else WIDTH[layer]
+    return (rows, width), {"K1": flow, "K2": flow, "K3": vit_calls * vit_forwards}
+
+
+def run_extract_cli(argv: list) -> dict:
+    """``cli.main(["extract", ...])`` in-process -> its JSON line."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["extract", *argv])
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def extraction_instruments():
+    """While inside: ``cli._build_extractor`` builds once (the seeded random
+    weights of a run without checkpoints) and every later ``extract`` gets
+    that extractor; every ``video_feature_async_i420`` runs under
+    ``no_sync``."""
+    built = []
+    build, enqueue = cli._build_extractor, FeatureExtractor.video_feature_async_i420
+
+    def build_once(args):
+        if not built:
+            built.append(build(args))
+        return built[0]
+
+    def guarded(self, *args, **kwargs):
+        with no_sync():
+            return enqueue(self, *args, **kwargs)
+
+    cli._build_extractor, FeatureExtractor.video_feature_async_i420 = build_once, guarded
+    try:
+        yield built
+    finally:
+        cli._build_extractor, FeatureExtractor.video_feature_async_i420 = build, enqueue
+
+
+@contextlib.contextmanager
+def extract_host_split():
+    """While inside: host seconds of the decode (``decode_video_inputs_i420``,
+    in a decode thread) and of ``_extract_one`` (upload, conversion and the
+    enqueue of every launch) inside ``extract``; the rest of a run's wall
+    time is the wait for the device at the fetch plus the CLI's own work."""
+    timers = Timers()
+    saved = cli.decode_video_inputs_i420, cli._extract_one
+    cli.decode_video_inputs_i420 = timers.wrap("decode", saved[0])
+    cli._extract_one = timers.wrap("enqueue", saved[1])
+    try:
+        yield timers
+    finally:
+        cli.decode_video_inputs_i420, cli._extract_one = saved
+
+
+def write_extract_meta(name: str, vids: list) -> str:
+    path = os.path.join(EXTRACT_DIR, name)
+    with open(path, "w") as f:
+        f.write("vid,mos,framerate,width,height\n")
+        f.writelines(f"{v},{50 + i},4,{W_HI},{H_HI}\n" for i, v in enumerate(vids))
+    return path
+
+
+def extract_cuda_vs_cpu() -> dict:
+    """Each mode's stored matrix from ``_extract_one`` on the card and on the
+    CPU (2 frames and 2 pairs at 240x320, depth-2 ViT, f32 with TF32 off):
+    cosine of the whole matrix >= 0.99999 (per segment for ``full``)."""
+    rs, vs = seeded_states(vit_depth=2)
+    frames = synthetic_bgr(4, 240, 320, seed=5)
+    fbuf, nbuf = bgr_to_i420(frames[0::2]), bgr_to_i420(frames[1::2])
+    cases = [("full", "resnet50", "pool"), ("layer_stack", "resnet50", "pool"), ("layer", "resnet50", "last_layer"),
+             ("fragment_layerstack", "resnet50", "pool"), ("fragment_pool", "resnet50", "pool"),
+             ("frame_diff", "resnet50", "pool"), ("frame_diff_frag", "resnet50", "layer_stack"),
+             ("optical_flow", "vit", "pool"), ("optical_flow_frag", "vit", "pool")]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        fx = FeatureExtractor(rs, vs, dtype=torch.float32, vit_depth=2, device=dev)
+        abl = AblationExtractor(fx)
+        outs[dev] = [cli._extract_one(fx, abl, *case, fbuf, nbuf, 240, 320).cpu().numpy().astype(np.float64)
+                     for case in cases]
+    r = {}
+    for case, got, want in zip(cases, outs["cuda"], outs["cpu"]):
+        if case[0] == "full":
+            cos = min(segment_cosines(got, want).values())
+        else:
+            cos = float(got.ravel() @ want.ravel() / (np.linalg.norm(got) * np.linalg.norm(want)))
+        diff = float(np.abs(got - want).max())
+        r["/".join(case)] = {"cosine": cos, "max_abs_diff": diff, "shape": list(got.shape)}
+        print(f"  {'/'.join(case)} {got.shape}: cosine(cuda, cpu) {cos:.8f} (bound 0.99999), "
+              f"largest |difference| {diff:.3e}")
+        if not (cos >= 0.99999 and np.isfinite(got).all()):
+            raise AssertionError(f"extraction {case}: CUDA against CPU cosine {cos}")
+    return r
+
+
+def vgg_check() -> dict:
+    """VGG-16 with seeded weights, a batch of 16 at 224x224: CUDA f32
+    against CPU f32 (every raw tap and fc2: max error over the tap's max <=
+    1e-4), bf16 against f32 (per-tap cosine >= 0.999); ms per batch by
+    events in both types, with ``reduce="mean"``, and peak memory."""
+    model = random_init_(VGG16(), 0).eval()
+    x = torch.randn((16, 3, 224, 224), generator=torch.Generator().manual_seed(8))
+    r = {"f32_vs_cpu": {}, "bf16_vs_f32_cosine": {}}
+    with torch.inference_mode():
+        want = model(x, reduce=None)
+        gpu = copy.deepcopy(model).cuda()
+        xc = x.cuda()
+        got = gpu(xc, reduce=None)
+        for name, t in got.items():
+            _, rel = rel_err(t, want[name].cuda())
+            r["f32_vs_cpu"][name] = rel
+        worst = max(r["f32_vs_cpu"].values())
+        print(f"  VGG-16 CUDA f32 against CPU f32, 13 taps and fc2: largest error / max |tap| {worst:.3e} "
+              f"(bound 1e-4)")
+        if not worst <= 1e-4:
+            raise AssertionError(f"VGG-16 CUDA against CPU: {r['f32_vs_cpu']}")
+        del want
+        half = copy.deepcopy(gpu).to(torch.bfloat16)
+        low = half(xc.to(torch.bfloat16), reduce=None)
+        for name, t in low.items():
+            a, b = t.double().ravel(), got[name].double().ravel()
+            r["bf16_vs_f32_cosine"][name] = float(a @ b / (a.norm() * b.norm()))
+        low_cos = min(r["bf16_vs_f32_cosine"].values())
+        print(f"  VGG-16 bf16 against f32: lowest per-tap cosine {low_cos:.6f} (bound 0.999)")
+        if not low_cos >= 0.999:
+            raise AssertionError(f"VGG-16 bf16 drifts from f32: {r['bf16_vs_f32_cosine']}")
+        del got, low
+        for tag, net, inp in (("f32", gpu, xc), ("bf16", half, xc.to(torch.bfloat16))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            r[f"{tag}_ms"] = cuda_ms(lambda: net(inp), iters=10)
+            r[f"{tag}_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            print(f"  VGG-16 {tag}, batch 16: {r[f'{tag}_ms']:.3f} ms a batch (events), "
+                  f"max_memory_allocated {r[f'{tag}_max_memory_allocated']}")
+    return r
+
+
+def run_extraction() -> dict:
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+
+    def lap(step: str) -> None:
+        nonlocal t_phase
+        out["seconds"][step] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+    shutil.rmtree(EXTRACT_DIR, ignore_errors=True)  # no store left by an earlier run
+    os.makedirs(os.path.join(EXTRACT_DIR, "LIVE-Qualcomm"))
+    vids = [f"clip{i}" for i in range(N_EXTRACT)]
+    clips = [make_clip(os.path.join("extract", "LIVE-Qualcomm", f"{v}.yuv"), FRAMES_HI, H_HI, W_HI, seed=40 + i)
+             for i, v in enumerate(vids)]
+    meta = write_extract_meta("meta.csv", vids)
+    meta_one = write_extract_meta("meta_one.csv", vids[:1])
+    base = ["--dataset", "live_qualcomm", "--root", EXTRACT_DIR, "--decode-workers", "4"]
+    runs = itertools.count()
+
+    def fresh() -> str:
+        return os.path.join(EXTRACT_DIR, f"out{next(runs)}")
+
+    lap("clips")
+    with extraction_instruments() as built:
+        print(f"  (a) extract --mode full: {N_EXTRACT} clips {H_HI}x{W_HI}, {FRAMES_HI // 2} frames and pairs each")
+        out_a, mat_path = fresh(), os.path.join(EXTRACT_DIR, "full.mat")
+        reset_counts()
+        line = run_extract_cli([*base, "--metadata-csv", meta, "--output", out_a, "--dispatch-ahead", "2",
+                                "--save-mat", mat_path])
+        fx = built[0]
+        chunk = fx.max_pair_batch(H_HI, W_HI)
+        calls = (len(pyramid_levels(H_HI, W_HI)) * FARNEBACK_PARAMS["iterations"], len(fx.vit.blocks))
+        n_chunks = -(-(FRAMES_HI // 2) // chunk)
+        per_video = {"K1": calls[0] * n_chunks, "K2": calls[0] * n_chunks, "K3": calls[1] * (1 + n_chunks)}
+        r = out["a"] = {"line": line, "launches": check_counts(
+            "(a) full", {k: v * N_EXTRACT for k, v in per_video.items()})}
+        if line != {"dataset": "live_qualcomm", "mode": "full", "shape": [N_EXTRACT, TOTAL_FEATURE_DIM]}:
+            raise AssertionError(f"(a) result line {line}")
+        store = FeatureStore(out_a)
+        rows = np.stack([store.get("live_qualcomm", i) for i in range(N_EXTRACT)])
+        r["vs_single"] = [check_cosines(f"(a) stored row {i} vs video_feature_i420", row,
+                                        fx.video_feature_i420(*decode_video_inputs_i420(c, 4.0, W_HI, H_HI)),
+                                        COS_BOUND["bf16"]) for i, (row, c) in enumerate(zip(rows, clips))]
+        mat = np.load(os.path.join(out_a, "live_qualcomm_features.npy"))
+        if not np.array_equal(mat, rows):
+            raise AssertionError("(a) the .npy matrix differs from the stored rows")
+        if not np.array_equal(load_mat_features(mat_path, "live_qualcomm"), mat.astype(float)):
+            raise AssertionError("(a) the --save-mat file does not reload unchanged")
+        print("  (a) the .npy matrix equals the stored rows; the .mat reloads unchanged")
+        reset_counts()
+        again = run_extract_cli([*base, "--metadata-csv", meta, "--output", out_a])
+        r["resume_launches"] = check_counts("(a) resume", {"K1": 0, "K2": 0, "K3": 0})
+        if again != line or not np.array_equal(np.load(os.path.join(out_a, "live_qualcomm_features.npy")), mat):
+            raise AssertionError("(a) the resumed run changed the result")
+        t = r["timing"] = timed(lambda: run_extract_cli([*base, "--metadata-csv", meta, "--output", fresh(),
+                                                         "--dispatch-ahead", "2"]))
+        r["warm_ms_per_video"] = t["ms_median"] / N_EXTRACT
+        print(f"  (a) fresh run: {r['warm_ms_per_video']:.2f} ms per video (runs {t['ms']} for {N_EXTRACT}), "
+              f"busy share {t['busy_share']}, max_memory_allocated {t['max_memory_allocated']}")
+        lap("a")
+
+        print(f"  (b) every other mode on clip0 ({FRAMES_HI // 2} frames, {FRAMES_HI // 2} pairs, chunks of {chunk})")
+        out["b"] = {}
+        for mode, network, layer in extraction_combinations():
+            argv = [*base, "--metadata-csv", meta_one, "--mode", mode, "--network", network, "--layer", layer]
+            shape, want = expected_extraction(mode, network, layer, FRAMES_HI // 2, FRAMES_HI // 2, chunk, *calls)
+            ms = []
+            for _ in range(2):  # cold, then warm
+                reset_counts()
+                out_b = fresh()
+                with extract_host_split() as timers:
+                    t0 = time.perf_counter()
+                    line = run_extract_cli([*argv, "--output", out_b])
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                got = counts()
+            split = {k: v * 1e3 for k, v in timers.s.items()}
+            stored = FeatureStore(out_b).get(f"live_qualcomm_{mode}", 0)
+            key = f"{mode}/{network}/{layer}"
+            out["b"][key] = {"shape": list(stored.shape), "launches": got, "ms_cold": ms[0], "ms": ms[1],
+                             "host_ms": split}
+            print(f"  {key}: {stored.shape}, launches {got}, {ms[1]:.1f} ms per video warm ({ms[0]:.1f} cold); "
+                  f"host ms decode {split['decode']:.1f}, enqueue {split['enqueue']:.1f}, "
+                  f"rest {ms[1] - sum(split.values()):.1f}")
+            if stored.shape != shape or line["shape"] != [1, shape[1]] or not np.isfinite(stored).all():
+                raise AssertionError(f"(b) {key}: stored {stored.shape}, line {line}, expected {shape}")
+            if got != want:
+                raise AssertionError(f"(b) {key}: launches {got}, expected {want}")
+
+        lap("b")
+        print("  (e) extract --profile-dir")
+        trace_dir = os.path.join(EXTRACT_DIR, "trace")
+        run_extract_cli([*base, "--metadata-csv", meta_one, "--output", fresh(), "--mode", "layer",
+                         "--network", "vit", "--profile-dir", trace_dir])
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        out["e"] = {"files": len(traces), "bytes": os.path.getsize(traces[0]), "kernel_events": kernels}
+        print(f"  (e) trace: {out['e']}")
+        if len(traces) != 1 or not events or (fx.device.type == "cuda" and not kernels):
+            raise AssertionError(f"(e) --profile-dir wrote {out['e']}")
+        del fx, built[:]
+    torch.cuda.empty_cache()
+    lap("e")
+
+    print("  (c) CUDA against CPU, every mode (240x320, 2 frames and 2 pairs, depth-2 ViT, f32)")
+    out["c"] = extract_cuda_vs_cpu()
+    lap("c")
+    print("  (d) VGG-16, seeded, batch 16 at 224x224")
+    out["d"] = vgg_check()
+    shutil.rmtree(EXTRACT_DIR)
+    lap("d")
+    print(f"  phase 8 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1209,6 +1523,9 @@ def main() -> int:
     print("[7] training the MLP head at full width: train, CUDA vs CPU, train-lsvq, finetune")
     training = run_training(vec540)
 
+    print("[8] extraction: extract in every mode at 1080p, CUDA vs CPU, VGG-16, --profile-dir")
+    extraction = run_extraction()
+
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
                "K3": ("mha", "relaxtpu_torch/csrc/attention.cu", "relaxtpu/ops/attention.py:34")}
@@ -1236,7 +1553,8 @@ def main() -> int:
                    "build_s": build_s, "build": build_info, "kernels": kernels,
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
-                   "main_path": main_res, "serving": serving, "training": training}, fh, indent=1)
+                   "main_path": main_res, "serving": serving, "training": training,
+                   "extraction": extraction}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

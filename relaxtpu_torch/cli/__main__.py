@@ -9,6 +9,17 @@ Example::
         --height 540 --framerate 24 --model mlp.npz \
         --imputer konvid_1k_imputer.pkl --scaler konvid_1k_scaler.pkl
 
+Extraction: ``extract`` writes a dataset's features into relaxtpu's store
+(``<output>/<tag>/video_<i+1>.npy``, ``<output>/<tag>_features.npy``,
+``--save-mat``) for the full model (``--mode full``, the 35,203 vector) or
+one of the reference's ablation modes, resumes where a store has a video,
+and prints one JSON line.  It reads the dataset's raw ``.yuv`` files with
+the geometry of each metadata row (``framerate``, ``width``, ``height``).
+Example::
+
+    python -m relaxtpu_torch.cli extract --dataset live_qualcomm \
+        --metadata-csv meta.csv --root data --mode optical_flow --network vit
+
 Training: ``train`` (repeated holdout), ``train-lsvq`` (LSVQ fixed split),
 ``finetune`` (cross-dataset, or ``--zero-shot``) and ``train-cross``, with
 the JAX CLI's flags (less ``--config``) and ``--device``; each prints one
@@ -23,6 +34,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures as cf
+import contextlib
 import csv
 import glob
 import itertools
@@ -35,6 +47,7 @@ import numpy as np
 import torch
 
 from relaxtpu_torch.io.video import decode_video_inputs_i420
+from relaxtpu_torch.ops.colorspace import unpack_i420, yuv420_to_bgr
 
 log = logging.getLogger("relaxtpu_torch.cli")
 
@@ -193,6 +206,120 @@ def cmd_serve(args):
                dict(framerate=args.framerate, width=args.width, height=args.height))
 
 
+def _single_layer_frames(ablation, network: str, layer: str, frames: torch.Tensor) -> torch.Tensor:
+    """Full-frame single-tap features (the reference's ``main_layer.py``):
+    the ablation's feature step on the frames themselves, not quantised."""
+    return ablation.features_from_images(network, layer, frames)
+
+
+def _extract_one(extractor, ablation, mode: str, network: str, layer: str,
+                 fbuf, nbuf, h: int, w: int) -> torch.Tensor:
+    """One video's stored features for ``mode``, on the device, not fetched.
+
+    ``full``: the (35203,) vector of the single-video program, enqueued
+    without waiting.  Else the per-frame or per-pair matrix of the
+    reference's ablation scripts; only the networks whose output is stored
+    run.  ``layer_stack`` and ``layer`` with ``vit``: the frames' ViT stats;
+    ``layer_stack``: the frames' ResNet layer stack; ``layer`` with
+    ``resnet50``: the single tap ``layer``; ``fragment_layerstack`` /
+    ``fragment_pool``: frag_resnet / frag_vit of the pairs; the residual
+    modes: ``network``'s tap of each pair's residual image, a chunk of
+    ``max_pair_batch`` pairs at a time.
+    """
+    if mode == "full":
+        return extractor.video_feature_async_i420(fbuf, nbuf, h, w)
+    frames = yuv420_to_bgr(*unpack_i420(extractor._upload([fbuf]), h, w))
+    if mode in ("layer_stack", "layer"):
+        if network == "vit":
+            return extractor.frame_features_dev(frames, ("vit",))[1]
+        if mode == "layer_stack":
+            return extractor.frame_features_dev(frames, ("resnet50",))[0]
+        return _single_layer_frames(ablation, network, layer, frames)
+    nxt = yuv420_to_bgr(*unpack_i420(extractor._upload([nbuf]), h, w))
+    prev = frames[: len(nxt)]  # the pairs' first frames are the sampled frames
+    if mode == "fragment_layerstack":
+        return extractor.pair_features_dev(prev, nxt, ("resnet50",))[0]
+    if mode == "fragment_pool":
+        return extractor.pair_features_dev(prev, nxt, ("vit",))[1]
+    step = extractor.max_pair_batch(h, w)
+    return torch.cat([ablation.pair_features_dev(mode, network, layer, prev[s : s + step], nxt[s : s + step])
+                      for s in range(0, len(prev), step)])
+
+
+def _row_geometry(meta: dict, i: int) -> tuple[float, int, int]:
+    """framerate, width and height of row ``i`` of the metadata: a raw .yuv
+    file carries none of them, so each is required."""
+    out = []
+    for col, cast in (("framerate", float), ("width", int), ("height", int)):
+        if col not in meta:
+            raise ValueError(f"the metadata has no {col!r} column, which a raw .yuv file needs")
+        value = str(meta[col][i]).strip()
+        if value.lower() in ("", "nan"):
+            raise ValueError(f"video {meta['vid'][i]}: no {col!r} in the metadata, which a raw .yuv file needs")
+        out.append(cast(float(value)))
+    return tuple(out)
+
+
+def cmd_extract(args):
+    from relaxtpu_torch.data.store import FeatureStore
+    from relaxtpu_torch.device import resolve_device
+    from relaxtpu_torch.features.ablation import AblationExtractor
+    from relaxtpu_torch.io.datasets import data_root, get_dataset, load_metadata, read_metadata_csv
+    from relaxtpu_torch.io.video import require_raw_yuv
+    from relaxtpu_torch.utils.profiling import trace_to
+
+    resolve_device(args.device)
+    if (args.n_data or 1) * args.n_model > 1:
+        raise NotImplementedError("--n-data/--n-model above 1: multi-device extraction is not "
+                                  "ported yet (the multi-device item of ROADMAP.md's Queue 1)")
+    spec = get_dataset(args.dataset)
+    root = data_root(args.root)
+    require_raw_yuv(spec.video_path(root, ""))
+    meta = read_metadata_csv(args.metadata_csv) if args.metadata_csv else load_metadata(spec, args.metadata_dir)
+    n = len(meta["vid"])
+    store = FeatureStore(args.output)
+    extractor = _build_extractor(args)
+    ablation = AblationExtractor(extractor)
+    # the tag ignores --network and --layer, as relaxtpu's store layout does
+    tag = args.dataset if args.mode == "full" else f"{args.dataset}_{args.mode}"
+    todo = [i for i in range(n) if not store.has(tag, i)]
+    # full: up to --dispatch-ahead vectors stay enqueued on the device while
+    # later videos decode; the ablation modes store each video at once
+    ahead = args.dispatch_ahead if args.mode == "full" else 0
+    pending = collections.deque()  # (index, features on the device)
+
+    def decode(i: int):
+        path = spec.video_path(root, str(meta["vid"][i]))
+        return decode_video_inputs_i420(path, *_row_geometry(meta, i))
+
+    def drain(limit: int) -> None:
+        while len(pending) > limit:
+            j, feat = pending.popleft()
+            store.put(tag, j, feat.cpu().numpy())
+            log.info("extracted video %d of %d", j + 1, n)
+
+    def extract(i: int, decoded) -> None:
+        pending.append((i, _extract_one(extractor, ablation, args.mode, args.network, args.layer,
+                                        *decoded.result())))
+        drain(ahead)
+
+    profile = trace_to(args.profile_dir, extractor.device) if args.profile_dir else contextlib.nullcontext()
+    with profile, cf.ThreadPoolExecutor(max_workers=args.decode_workers) as pool:
+        decoding = collections.deque()  # at most decode_workers + 1 decoded videos wait
+        for i in todo:
+            decoding.append((i, pool.submit(decode, i)))
+            if len(decoding) > args.decode_workers:
+                extract(*decoding.popleft())
+        while decoding:
+            extract(*decoding.popleft())
+        drain(0)
+    mat = store.assemble(tag, n)
+    np.save(os.path.join(args.output, f"{tag}_features.npy"), mat)
+    if args.save_mat:
+        store.save_mat(tag, n, args.save_mat, key=args.dataset)
+    print(json.dumps({"dataset": args.dataset, "mode": args.mode, "shape": list(mat.shape)}))
+
+
 def _grey_indices_for(args, dataset: str):
     """Greyscale rows to drop: an explicit report, else the conventional
     location for youtube_ugc (the only dataset the reference drops them for)."""
@@ -344,6 +471,10 @@ def _add_model_flags(sp) -> None:
     sp.add_argument("--imputer", required=True)
     sp.add_argument("--scaler", required=True)
     sp.add_argument("--finetuned", action="store_true")
+    _add_backbone_flags(sp)
+
+
+def _add_backbone_flags(sp) -> None:
     sp.add_argument("--resnet-weights", default=None, help="torchvision resnet50 .pth")
     sp.add_argument("--vit-weights", default=None, help="DINO ViT-B/16 .pth")
     grp = sp.add_mutually_exclusive_group()
@@ -406,6 +537,45 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--in-flight", type=int, default=2,
                     help="videos left enqueued on the device while later requests decode")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser(
+        "extract", help="a dataset's features into relaxtpu's per-video store",
+        description="Unlike the JAX CLI, this one reads raw I420 .yuv datasets only; each "
+        "video's framerate, width and height come from its metadata row.",
+    )
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--root", default=None, help="data root (default: $RELAXTPU_DATA_ROOT or .)")
+    sp.add_argument("--metadata-dir", default="metadata")
+    sp.add_argument("--metadata-csv", default=None, help="metadata CSV in place of the registry's")
+    sp.add_argument("--output", default="features_out")
+    sp.add_argument(
+        "--mode", default="full",
+        choices=[
+            "full",                 # the 35,203 model features (demo_test.py)
+            "layer_stack",          # full frames, multi-tap (main_layer_stack.py)
+            "layer",                # full frames, single tap (main_layer.py)
+            "fragment_layerstack",  # ori + merged fragments, ResNet (main_fragment_layerstack.py)
+            "fragment_pool",        # ori + merged fragments, ViT (main_fragment_pool.py)
+            "frame_diff",           # whole residual (main_residual.py)
+            "optical_flow",         # whole flow image (main_residual.py, flow)
+            "frame_diff_frag",      # residual fragment (main_residual_fragment.py)
+            "optical_flow_frag",    # flow fragment (main_residual_fragment.py, flow)
+        ],
+    )
+    sp.add_argument("--network", default="resnet50", choices=["resnet50", "vit"])
+    sp.add_argument("--layer", default="pool", choices=["pool", "last_layer", "layer_stack"])
+    sp.add_argument("--save-mat", default=None, help="also export the reference-format .mat")
+    sp.add_argument("--decode-workers", type=int, default=4, help="host decode threads")
+    sp.add_argument("--dispatch-ahead", type=int, default=2,
+                    help="--mode full: videos left enqueued on the device while later ones decode")
+    sp.add_argument("--profile-dir", default=None, help="write a torch.profiler Chrome trace here")
+    sp.add_argument("--ingest", default="auto", choices=["bgr", "yuv", "auto"],
+                    help="accepted for compatibility: a .yuv file gives the same frames in every "
+                    "mode (the device converter bit-matches the host one)")
+    sp.add_argument("--n-data", type=int, default=None, help="above 1: not ported (multi-device)")
+    sp.add_argument("--n-model", type=int, default=1, help="above 1: not ported (multi-device)")
+    _add_backbone_flags(sp)
+    sp.set_defaults(fn=cmd_extract)
 
     sp = sub.add_parser("train", help="repeated-holdout training of the MLP head")
     sp.add_argument("--dataset", default="konvid_1k")

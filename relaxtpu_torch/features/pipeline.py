@@ -1,6 +1,6 @@
 """The feature pipeline: frames -> the 35,203-dim vector, for one video or many.
 
-Counterpart of ``relaxtpu/features/pipeline.py:133-582``.  On the device:
+Counterpart of ``relaxtpu/features/pipeline.py:79-618``.  On the device:
 
 - resize the sampled frames to 224x224 for the backbones (linear and
   lanczos3, both antialiased, quantised to 8-bit levels);
@@ -9,6 +9,10 @@ Counterpart of ``relaxtpu/features/pipeline.py:133-582``.  On the device:
 - ResNet-50 and ViT forwards over frames and fragments (ViT attention is
   kernel K3);
 - means over the rows into the frozen 35,203 layout.
+
+``frame_features`` and ``pair_features`` give the per-frame and per-pair
+rows before the means (the extraction modes store them), each with a
+device form that takes and returns tensors on the device.
 
 Three programs share these stages:
 
@@ -68,6 +72,7 @@ FLOW_LIVE_PLANES = 48
 BACKBONE_PEAK_BYTES = 3e9
 CPU_FLOW_BUDGET = 8.5e9
 MAX_PAIR_BATCH = 16  # the JAX package's cap, so both send a video down the same path
+NETWORKS = ("resnet50", "vit")
 
 
 def prev_frame_runs(n_frames, n_pairs, start: int, stop: int) -> list[tuple[int, int]]:
@@ -129,15 +134,19 @@ class FeatureExtractor:
         return max(1, min(MAX_PAIR_BATCH, int(self.flow_budget // per_pair)))
 
     # ---------------------------------------------------------------- stages
-    def _backbone_inputs(self, bgr_u8: torch.Tensor, resize: bool):
-        """(B, H, W, 3) uint8 BGR -> ResNet and ViT inputs (B, 3, 224, 224)."""
+    def _backbone_inputs(self, bgr_u8: torch.Tensor, resize: bool, networks=NETWORKS):
+        """(B, H, W, 3) uint8 BGR -> ResNet and ViT inputs (B, 3, 224, 224);
+        None for a network not in ``networks``."""
         rgb = bgr_u8.flip(-1).permute(0, 3, 1, 2).to(torch.float32) / 255.0
-        if resize and tuple(rgb.shape[-2:]) != (224, 224):
-            rgb_rn = quantize_u8_levels(resize_hw(rgb, (224, 224), "linear", antialias=True))
-            rgb_vit = quantize_u8_levels(resize_hw(rgb, (224, 224), "lanczos3", antialias=True))
-        else:
-            rgb_rn = rgb_vit = rgb
-        return resnet_preprocess(rgb_rn).to(self.dtype), rgb_vit.to(self.dtype)
+
+        def sized(method: str) -> torch.Tensor:
+            if resize and tuple(rgb.shape[-2:]) != (224, 224):
+                return quantize_u8_levels(resize_hw(rgb, (224, 224), method, antialias=True))
+            return rgb
+
+        x_rn = resnet_preprocess(sized("linear")).to(self.dtype) if "resnet50" in networks else None
+        x_vit = sized("lanczos3").to(self.dtype) if "vit" in networks else None
+        return x_rn, x_vit
 
     @staticmethod
     def _fragments(prev: torch.Tensor, nxt: torch.Tensor):
@@ -151,17 +160,25 @@ class FeatureExtractor:
         flow_frag = gather_fragment(flow_img, top_patch_indices(patch_scores(flow_img)))
         return ori_frag, merge_fragments(diff_frag, flow_frag)
 
-    def _backbones(self, x_rn: torch.Tensor, x_vit: torch.Tensor):
+    def _backbones(self, x_rn: torch.Tensor | None, x_vit: torch.Tensor | None):
         """-> ResNet layer stack (B, 13120), ResNet pool (B, 2051) and ViT
-        stats (B, 2304), f32."""
-        taps = self.resnet(x_rn)
-        return layer_stack_feature(taps), resnet_pool_feature(taps["avgpool"]), self.vit(x_vit)
+        stats (B, 2304), f32; a network whose input is None is not run and
+        gives None."""
+        stack = pool = vit = None
+        if x_rn is not None:
+            taps = self.resnet(x_rn)
+            stack, pool = layer_stack_feature(taps), resnet_pool_feature(taps["avgpool"])
+        if x_vit is not None:
+            vit = self.vit(x_vit)
+        return stack, pool, vit
 
     @staticmethod
     def _fragment_rows(stack, pool, vit, p: int):
         """Backbone rows of p ori then p merged fragments -> frag_resnet
-        (p, 15171) and frag_vit (p, 4608)."""
-        return torch.cat([stack[:p], pool[p:]], dim=-1), torch.cat([vit[:p], vit[p:]], dim=-1)
+        (p, 15171) and frag_vit (p, 4608); None where the rows are None."""
+        frag_rn = None if stack is None else torch.cat([stack[:p], pool[p:]], dim=-1)
+        frag_vit = None if vit is None else torch.cat([vit[:p], vit[p:]], dim=-1)
+        return frag_rn, frag_vit
 
     # -------------------------------------------------------------- programs
     def _videos_vec(self, frames, pairs, n_frames, n_pairs, chunk: int) -> torch.Tensor:
@@ -267,6 +284,41 @@ class FeatureExtractor:
         if chunk is None:
             chunk = self.max_pair_batch(h, w)
         return self._videos_vec(frames, pairs, n_frames, n_pairs, chunk)
+
+    @torch.inference_mode()
+    def frame_features_dev(self, frames: torch.Tensor, networks=NETWORKS):
+        """(F, H, W, 3) uint8 BGR on the device -> ResNet layer stack
+        (F, 13120) and ViT stats (F, 2304), f32 on the device, not fetched.
+        The frames are resized and quantised as in the video programs.  A
+        network not in ``networks`` is not run and gives None."""
+        stack, _, vit = self._backbones(*self._backbone_inputs(frames, True, networks))
+        return stack, vit
+
+    @torch.inference_mode()
+    def pair_features_dev(self, prev: torch.Tensor, nxt: torch.Tensor, networks=NETWORKS):
+        """(P, H, W, 3) uint8 BGR pairs on the device -> frag_resnet
+        (P, 15171) and frag_vit (P, 4608), f32 on the device, not fetched;
+        fragments and backbones run a chunk of ``max_pair_batch`` pairs at a
+        time.  A network not in ``networks`` is not run and gives None."""
+        chunk = self.max_pair_batch(prev.shape[1], prev.shape[2])
+        rows = []
+        for s in range(0, len(prev), chunk):
+            ori, merged = self._fragments(prev[s : s + chunk], nxt[s : s + chunk])
+            x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), False, networks)
+            rows.append(self._fragment_rows(*self._backbones(x_rn, x_vit), len(ori)))
+        return tuple(None if parts[0] is None else torch.cat(parts) for parts in zip(*rows))
+
+    def frame_features(self, frames_bgr_u8) -> tuple[np.ndarray, np.ndarray]:
+        """(F, H, W, 3) uint8 BGR -> resnet stack (F, 13120), ViT stats
+        (F, 2304), f32 numpy."""
+        stack, vit = self.frame_features_dev(self._upload([frames_bgr_u8]))
+        return stack.cpu().numpy(), vit.cpu().numpy()
+
+    def pair_features(self, prev_bgr_u8, next_bgr_u8) -> tuple[np.ndarray, np.ndarray]:
+        """(P, H, W, 3) uint8 BGR pairs -> frag_resnet (P, 15171), frag_vit
+        (P, 4608), f32 numpy."""
+        frag_rn, frag_vit = self.pair_features_dev(self._upload([prev_bgr_u8]), self._upload([next_bgr_u8]))
+        return frag_rn.cpu().numpy(), frag_vit.cpu().numpy()
 
     def video_feature_i420(self, frames_i420, next_i420, h: int, w: int) -> np.ndarray:
         """``video_feature_async_i420`` and the fetch -> (35203,) f32 numpy."""

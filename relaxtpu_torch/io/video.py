@@ -47,6 +47,15 @@ def read_i420_frames(path: str, width: int, height: int, indices) -> np.ndarray:
     return np.ascontiguousarray(frames[np.asarray(indices, np.int64)])
 
 
+def require_raw_yuv(path: str) -> None:
+    """Raises NotImplementedError unless ``path`` is a raw ``.yuv`` file."""
+    if not path.endswith(".yuv"):
+        raise NotImplementedError(
+            "container decode (mp4 and the like) is not ported yet; "
+            "pass a raw I420 .yuv file"
+        )
+
+
 def decode_video_inputs_i420(
     path: str,
     framerate: float | None,
@@ -60,11 +69,7 @@ def decode_video_inputs_i420(
     everything.  Raw files carry no metadata, so the frame rate and the
     geometry are required.
     """
-    if not path.endswith(".yuv"):
-        raise NotImplementedError(
-            "container decode (mp4 and the like) is not ported yet; "
-            "pass a raw I420 .yuv file"
-        )
+    require_raw_yuv(path)
     if framerate is None or width is None or height is None:
         raise ValueError("a raw .yuv file needs --framerate, --width and --height")
     if width % 2 or height % 2:

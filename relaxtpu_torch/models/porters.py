@@ -1,6 +1,7 @@
 """Carry weights from the JAX package's variable trees into the port.
 
-Inverse of ``relaxtpu/models/porters.py:46-108``: the trees hold numpy (or
+Inverse of ``relaxtpu/models/porters.py:46-108`` and
+``relaxtpu/models/vgg.py:69-87``: the trees hold numpy (or
 array-like) leaves in Flax layouts, and the functions return torch state
 dicts with torchvision / DINO / reference-MLP key names.  Flax conv kernels
 are (kH, kW, I, O) and become torch (O, I, kH, kW); Dense kernels (I, O)
@@ -14,6 +15,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from relaxtpu_torch.models.vgg import VGG_CONV_INDICES
 
 
 def _t(a) -> torch.Tensor:
@@ -78,6 +81,20 @@ def vit_from_jax(params: Mapping[str, Any], depth: int = 12) -> dict[str, torch.
         ):
             sd[f"{tp}.{dst}.weight"] = _linear(src["kernel"])
             sd[f"{tp}.{dst}.bias"] = _t(src["bias"])
+    return sd
+
+
+def vgg16_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``params`` of ``relaxtpu.models.vgg.VGG16`` -> torchvision-named
+    state dict of ``models.vgg.VGG16``.  The JAX model flattens in torch's
+    (C, H, W) order, so ``classifier_0`` needs only the transpose."""
+    params = variables.get("params", variables)
+    sd = {}
+    for prefix, kernel, idxs in (("features", _conv, VGG_CONV_INDICES), ("classifier", _linear, (0, 3))):
+        for idx in idxs:
+            p = params[f"{prefix}_{idx}"]
+            sd[f"{prefix}.{idx}.weight"] = kernel(p["kernel"])
+            sd[f"{prefix}.{idx}.bias"] = _t(p["bias"])
     return sd
 
 

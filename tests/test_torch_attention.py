@@ -14,6 +14,14 @@ from relaxtpu.ops.attention import fused_mha
 from relaxtpu_torch.ops.attention import mha
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator (the session one's state depends on which
+    files ran before in the same worker): the inputs are those of a run of
+    this file alone."""
+    return np.random.default_rng(0)
+
+
 def _run(q, k, v, dtype_j, dtype_t, scale):
     with jax.default_device(jax.devices("cpu")[0]):
         want = fused_mha(*(jnp.asarray(a, dtype_j) for a in (q, k, v)), scale=scale, interpret=True)

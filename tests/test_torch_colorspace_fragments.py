@@ -17,6 +17,14 @@ from relaxtpu_torch.ops import colorspace as tcs
 from relaxtpu_torch.ops import fragments as tfr
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator (the session one's state depends on which
+    files ran before in the same worker): the inputs are those of a run of
+    this file alone."""
+    return np.random.default_rng(0)
+
+
 def T(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

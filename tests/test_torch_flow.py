@@ -26,6 +26,14 @@ from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, warp_planes_plain
 
+
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator (the session one's state depends on which
+    files ran before in the same worker): the inputs are those of a run of
+    this file alone."""
+    return np.random.default_rng(0)
+
 cv2 = pytest.importorskip("cv2")
 
 

@@ -63,7 +63,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for argv in (["train", "--metadata-csv", "m.csv", "--features", "f.npy"],
                  ["train-lsvq", *pair], ["train-cross", *pair],
                  ["finetune", "--dataset", "konvid_1k", "--metadata-csv", "m.csv",
-                  "--features", "f.npy", "--base-model", "b.npz"]):
+                  "--features", "f.npy", "--base-model", "b.npz"],
+                 ["extract", "--dataset", "live_qualcomm", "--metadata-csv", "m.csv"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
     assert resolve_device("cpu").type == "cpu"

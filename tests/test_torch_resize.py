@@ -12,6 +12,14 @@ import torch
 from relaxtpu_torch.ops.resize import quantize_u8_levels, resize_hw
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator (the session one's state depends on which
+    files ran before in the same worker): the inputs are those of a run of
+    this file alone."""
+    return np.random.default_rng(0)
+
+
 @pytest.mark.parametrize(
     "src,dst,method,antialias",
     [
