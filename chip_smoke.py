@@ -104,7 +104,31 @@ Phases (any failed check raises, so the exit code is not 0):
        (per-tap cosine >= 0.999), ms per batch by events and peak memory;
    (e) ``--profile-dir`` writes one trace with the card's kernels in it;
    and the phase's seconds by step;
-9. print the ``kernels`` JSON line, the card line and the final status line.
+9. ingest at full width (ResNet-50, ViT-B/16 depth 12, seeded, bf16; the
+   card's host has cv2 but not libav, so (a)-(d) run what follows a
+   container's decode on seeded frames and (e) decodes a real mp4 through
+   cv2), launch counts set to 0 before each run and read after it:
+   (a) a seeded 540x960 raw clip (16 frames, 16 pairs): the BGR program
+       (``video_feature_async``, under ``set_sync_debug_mode("error")``) on
+       the host converter's frames against the I420 program on the clip's
+       bytes, bit-identical; K1 = K2 = K3 = 12; the bytes each uploads
+       (frames once); warm ms a video of each ingest, busy share, peak
+       memory;
+   (b) ``predict_arrays`` against ``predict_feature`` of (a)'s vector;
+   (c) ``predict_batch`` with ``--batch 2`` on five seeded clips, 540p and
+       360p interleaved, through an injected decode: rows in input order,
+       each against its single-video vector (phase 6's bound), launches;
+   (d) a 540p clip with no pairs: NaN in exactly the 19,779 fragment
+       entries, a finite MOS, K1 = K2 = 0, K3 = 12;
+   (e) whether the native decoder and cv2 load; ``predict_file`` on an
+       mp4 with both forced off raising the port's named error; where cv2
+       loads (it does on the card's host), a seeded 540p mp4 written and
+       decoded through it into the BGR program (K1 = K2 = K3 = 12, the
+       vector of the decoded frames);
+   (f) ``warmup 540x960 x 16`` through the CLI, ``measure_link`` and the
+       mode ``pick_serving_mode`` picks;
+   (g) ``resolve_device("cuda:1")`` refused;
+10. print the ``kernels`` JSON line, the card line and the final status line.
 
 Exits with 1 and prints no result when CUDA is not available.  Details go
 to ``build/chip_smoke/chip_smoke.json``.
@@ -145,7 +169,8 @@ from relaxtpu_torch.features.layout import TOTAL_FEATURE_DIM, segment_slices
 from relaxtpu_torch.cli.__main__ import predict_batch, serve_loop
 from relaxtpu_torch.features import pipeline as pipeline_mod
 from relaxtpu_torch.features.pipeline import FARNEBACK_PARAMS, FeatureExtractor
-from relaxtpu_torch.io.video import decode_video_inputs_i420
+from relaxtpu_torch.io import native
+from relaxtpu_torch.io.video import DecoderUnavailable, _yuv420_to_bgr_limited, decode_video, decode_video_inputs_i420
 from relaxtpu_torch.model.scalers import FeatureScaler
 from relaxtpu_torch.models.initutil import random_init_
 from relaxtpu_torch.models.resnet import ResNet50
@@ -158,7 +183,9 @@ from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve, box_blur_so
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
 from relaxtpu_torch.predict import VideoQualityPredictor
+from relaxtpu_torch.device import resolve_device
 from relaxtpu_torch.utils.checkpoint import load_snapshot_variables
+from relaxtpu_torch.utils.linkprobe import measure_link, pick_serving_mode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -703,6 +730,12 @@ def stream(pred: VideoQualityPredictor, clips: list, in_flight: int = 2) -> list
     return out + [v.cpu().numpy() for v in pending]
 
 
+def decode_540p(path: str):
+    """``predict-batch``'s decode of a 540p raw clip at 4 fps (on a host
+    without the native decoder: the numpy reader's I420)."""
+    return decode_video(path, 4.0, W, H)
+
+
 def make_clip(name: str, n: int, h: int, w: int, seed: int) -> str:
     path = os.path.join(WORK_DIR, name)
     bgr_to_i420(synthetic_bgr(n, h, w, seed=seed)).tofile(path)
@@ -787,12 +820,12 @@ def run_serving() -> dict:
             print(f"  ({tag}) warm ms per video: one after the other, streamed (2 in flight), batched by 4")
             modes = {
                 "sequential": lambda: [pred.predict_file(c, framerate=4.0, width=W, height=H) for c in clips],
-                "streamed": lambda: predict_batch(pred, clips, 4.0, W, H, batch=1),
-                "batched": lambda: predict_batch(pred, clips, 4.0, W, H, batch=len(clips)),
+                "streamed": lambda: predict_batch(pred, clips, decode_540p, batch=1),
+                "batched": lambda: predict_batch(pred, clips, decode_540p, batch=len(clips)),
                 # twelve videos: the pipeline's fill (first decode) and drain
                 # (last fetch) weigh a third as much a video as with four
-                "streamed_12": lambda: predict_batch(pred, clips * 3, 4.0, W, H, batch=1),
-                "batched_12": lambda: predict_batch(pred, clips * 3, 4.0, W, H, batch=len(clips)),
+                "streamed_12": lambda: predict_batch(pred, clips * 3, decode_540p, batch=1),
+                "batched_12": lambda: predict_batch(pred, clips * 3, decode_540p, batch=len(clips)),
                 "1080p_chunked": lambda: pred.predict_file(clip_hi, framerate=4.0, width=W_HI, height=H_HI),
             }
             r["timing"] = {}
@@ -1278,18 +1311,18 @@ def extraction_instruments():
 
 @contextlib.contextmanager
 def extract_host_split():
-    """While inside: host seconds of the decode (``decode_video_inputs_i420``,
-    in a decode thread) and of ``_extract_one`` (upload, conversion and the
+    """While inside: host seconds of the decode (``decode_video``, in a
+    decode thread) and of ``_extract_one`` (upload, conversion and the
     enqueue of every launch) inside ``extract``; the rest of a run's wall
     time is the wait for the device at the fetch plus the CLI's own work."""
     timers = Timers()
-    saved = cli.decode_video_inputs_i420, cli._extract_one
-    cli.decode_video_inputs_i420 = timers.wrap("decode", saved[0])
+    saved = cli.decode_video, cli._extract_one
+    cli.decode_video = timers.wrap("decode", saved[0])
     cli._extract_one = timers.wrap("enqueue", saved[1])
     try:
         yield timers
     finally:
-        cli.decode_video_inputs_i420, cli._extract_one = saved
+        cli.decode_video, cli._extract_one = saved
 
 
 def write_extract_meta(name: str, vids: list) -> str:
@@ -1315,8 +1348,8 @@ def extract_cuda_vs_cpu() -> dict:
     for dev in ("cpu", "cuda"):
         fx = FeatureExtractor(rs, vs, dtype=torch.float32, vit_depth=2, device=dev)
         abl = AblationExtractor(fx)
-        outs[dev] = [cli._extract_one(fx, abl, *case, fbuf, nbuf, 240, 320).cpu().numpy().astype(np.float64)
-                     for case in cases]
+        outs[dev] = [cli._extract_one(fx, abl, *case, "i420", (fbuf, nbuf, 240, 320)).cpu().numpy()
+                     .astype(np.float64) for case in cases]
     r = {}
     for case, got, want in zip(cases, outs["cuda"], outs["cpu"]):
         if case[0] == "full":
@@ -1491,6 +1524,217 @@ def run_extraction() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+INGEST_DIR = os.path.join(WORK_DIR, "ingest")
+H_LO, W_LO = 360, 640
+FRAG_ENTRIES = 15171 + 4608  # frag_resnet and frag_vit: NaN for a video with no pairs
+
+
+class UploadBytes:
+    """While inside: bytes that ``fx._upload`` sends to the device."""
+
+    def __init__(self, fx: FeatureExtractor):
+        self.fx, self.n = fx, 0
+
+    def __enter__(self):
+        inner = self.fx._upload
+
+        def counted(arrays):
+            self.n += sum(np.asarray(a).nbytes for a in arrays)
+            return inner(arrays)
+        self.fx._upload = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.fx._upload
+
+
+def i420_clip(n_frames: int, h: int, w: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Packed I420 sampled frames and successors of a seeded clip."""
+    x = synthetic_bgr(2 * n_frames, h, w, seed)
+    return bgr_to_i420(x[0::2]), bgr_to_i420(x[1::2])
+
+
+def run_ingest() -> dict:
+    """Phase 9: what follows the decode of a container, at full width, on
+    seeded frames; and in (e) a real mp4 decoded through cv2, which the
+    card's host has (libav it has not)."""
+    os.makedirs(INGEST_DIR, exist_ok=True)
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+
+    def lap(step: str) -> None:
+        nonlocal t_phase
+        out["seconds"][step] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+    rs, vs = seeded_states(vit_depth=12)
+    fx = FeatureExtractor(rs, vs, dtype=torch.bfloat16, vit_depth=12, device="cuda")
+    scaler = FeatureScaler(fill=np.zeros(1), scale=np.ones(1), offset=np.zeros(1))
+    pred = VideoQualityPredictor(fx, random_init_(Mlp(), 2).state_dict(), scaler)
+    per_flow = len(pyramid_levels(H, W)) * FARNEBACK_PARAMS["iterations"]
+    depth = len(fx.vit.blocks)
+
+    print(f"  (a) the BGR program against the I420 program: {H}x{W}, {FRAMES} frames and {PAIRS} pairs")
+    clip = make_clip(os.path.join("ingest", "clip540p.yuv"), 2 * FRAMES, H, W, seed=50)
+    fbuf, nbuf, h, w = decode_video_inputs_i420(clip, 4.0, W, H)
+    frames, nxt = (np.stack([_yuv420_to_bgr_limited(row.reshape(h * 3 // 2, w), w, h) for row in b])
+                   for b in (fbuf, nbuf))  # the host converter's BGR frames
+    prev = frames[: len(nxt)]  # the prefix view decode_video_inputs gives
+    if (len(frames), len(nxt)) != (FRAMES, PAIRS):
+        raise AssertionError(f"(a) decode gave {len(frames)} frames, {len(nxt)} pairs")
+    vec_i420 = fx.video_feature_i420(fbuf, nbuf, h, w)
+    reset_counts()
+    with no_sync(), UploadBytes(fx) as up_bgr:
+        pending = fx.video_feature_async(frames, prev, nxt)
+    vec_bgr = pending.cpu().numpy()
+    r = out["a"] = {"launches": check_counts("(a) BGR program", {"K1": per_flow, "K2": per_flow, "K3": depth})}
+    with UploadBytes(fx) as up_i420:
+        fx.video_feature_async_i420(fbuf, nbuf, h, w).cpu()
+    r["upload_bytes"] = {"bgr": up_bgr.n, "i420": up_i420.n}
+    r["max_abs_diff"] = float(np.abs(vec_bgr - vec_i420).max())
+    print(f"  (a) bytes uploaded a video: BGR {up_bgr.n}, I420 {up_i420.n}; BGR against I420 vector: "
+          f"largest |difference| {r['max_abs_diff']:.3e} (expected 0: the same uint8 frames)")
+    if not np.isfinite(vec_bgr).all() or not np.array_equal(vec_bgr, vec_i420):
+        raise AssertionError(f"(a) the BGR vector is not the I420 vector: {r['max_abs_diff']}")
+    if (up_bgr.n, up_i420.n) != (2 * PAIRS * H * W * 3, 2 * PAIRS * H * W * 3 // 2):
+        raise AssertionError(f"(a) uploads {up_bgr.n} and {up_i420.n} B: frames not uploaded once")
+    r["timing"] = {
+        "bgr": timed(lambda: fx.video_feature_async(frames, prev, nxt).cpu()),
+        "i420": timed(lambda: fx.video_feature_async_i420(fbuf, nbuf, h, w).cpu()),
+    }
+    for k, t in r["timing"].items():
+        print(f"  (a) {k} ingest, enqueue and fetch: {t['ms_median']:.2f} ms a video (runs {t['ms']}), "
+              f"busy share {t['busy_share']}, max_memory_allocated {t['max_memory_allocated']}")
+    lap("a")
+
+    print("  (b) predict_arrays against predict_feature of (a)'s vector")
+    mos_vec, mos_arr = pred.predict_feature(vec_i420), pred.predict_arrays(frames, prev, nxt)
+    out["b"] = {"predict_feature": mos_vec, "predict_arrays": mos_arr}
+    print(f"  (b) MOS {mos_arr!r} against {mos_vec!r}")
+    if not math.isfinite(mos_arr) or abs(mos_arr - mos_vec) > 1e-5:
+        raise AssertionError(f"(b) predict_arrays {mos_arr} against predict_feature {mos_vec}")
+    lap("b")
+
+    print(f"  (c) predict_batch --batch 2 grouping: 540p, 360p, 540p, 360p, 540p ({FRAMES} frames, {PAIRS} pairs)")
+    shapes = [(H, W), (H_LO, W_LO), (H, W), (H_LO, W_LO), (H, W)]
+    paths = [f"clip{i}_{hh}x{ww}.mp4" for i, (hh, ww) in enumerate(shapes)]
+    decoded = {p: ("i420", (*i420_clip(FRAMES, hh, ww, seed=60 + i), hh, ww))
+               for i, (p, (hh, ww)) in enumerate(zip(paths, shapes))}
+    single = [fx.video_feature_i420(*decoded[p][1]) for p in paths]
+    vectors = types.SimpleNamespace(extractor=fx, predict_feature=lambda v: v.numpy())
+    chunks = {key: -(-2 * PAIRS // fx.max_pair_batch(*key)) for key in ((H, W), (H_LO, W_LO))}
+    flows = {key: len(pyramid_levels(*key)) * FARNEBACK_PARAMS["iterations"] for key in chunks}
+    k12 = sum(flows[key] * chunks[key] for key in chunks) + flows[(H, W)]
+    reset_counts()
+    rows = predict_batch(vectors, paths, decoded.__getitem__, batch=2)
+    r = out["c"] = {"launches": check_counts("(c) predict_batch", {"K1": k12, "K2": k12, "K3": 3 * depth})}
+    if [p for p, _ in rows] != paths:
+        raise AssertionError(f"(c) rows out of order: {[p for p, _ in rows]}")
+    r["vs_single"] = [check_cosines(f"(c) row {i} ({p}) vs single", v, s, COS_BOUND["bf16"])
+                      for i, ((p, v), s) in enumerate(zip(rows, single))]
+    mos = [m for _, m in predict_batch(pred, paths, decoded.__getitem__, batch=2)]
+    r["mos"] = mos
+    print(f"  (c) MOS {mos}")
+    if not all(math.isfinite(m) for m in mos):
+        raise AssertionError(f"(c) MOS not finite: {mos}")
+    del decoded, single
+    lap("c")
+
+    print(f"  (d) a {H}x{W} clip with one sampled frame and no pairs")
+    fbuf1, _ = i420_clip(1, H, W, seed=70)
+    reset_counts()
+    with no_sync():
+        pending = fx.video_feature_async_i420(fbuf1, fbuf1[:0], H, W)
+    vec = pending.cpu().numpy()
+    r = out["d"] = {"launches": check_counts("(d) no pairs", {"K1": 0, "K2": 0, "K3": depth})}
+    nan = np.isnan(vec)
+    r.update(nan_entries=int(nan.sum()), mos=pred.predict_feature(vec))
+    print(f"  (d) NaN entries {r['nan_entries']} (expected the {FRAG_ENTRIES} fragment entries), MOS {r['mos']!r}")
+    if not (nan[-FRAG_ENTRIES:].all() and np.isfinite(vec[:-FRAG_ENTRIES]).all() and math.isfinite(r["mos"])):
+        raise AssertionError(f"(d) NaN entries {r['nan_entries']}, MOS {r['mos']}")
+    lap("d")
+
+    print("  (e) the container decoder on this host")
+    out["e"] = r = {"native_loads": native.available(), "loader_error": native.load_error()}
+    try:
+        import cv2
+        r["cv2"] = cv2.__version__
+    except ImportError:
+        cv2 = None
+    print(f"  (e) native decoder loads: {r['native_loads']} ({r['loader_error']}); cv2: {r.get('cv2')}")
+    mp4 = os.path.join(INGEST_DIR, "clip540p.mp4")
+    with open(mp4, "wb") as f:
+        f.write(b"\0" * 4096)
+    saved = native.available, sys.modules.get("cv2")
+    native.available, sys.modules["cv2"] = (lambda: False), None  # a host with neither decoder
+    try:
+        pred.predict_file(mp4, ingest="auto")
+    except DecoderUnavailable as e:
+        r["refusal"] = str(e)
+        print(f"  (e) with both decoders off, predict_file on an mp4 raised DecoderUnavailable: {e}")
+    else:
+        raise AssertionError("(e) predict_file decoded an mp4 with both decoders off")
+    finally:
+        native.available = saved[0]
+        if saved[1] is None:
+            sys.modules.pop("cv2")
+        else:
+            sys.modules["cv2"] = saved[1]
+    writer = cv2 and cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 4, (W, H))
+    if cv2 is not None and not writer.isOpened():
+        print("  (e) cv2 cannot write mp4v on this host: no container to decode")
+    elif cv2 is not None:  # a real container, BGR-decoded (through cv2 where libav does not load)
+        for fr in synthetic_bgr(2 * FRAMES, H, W, seed=50).cpu().numpy():
+            writer.write(fr)
+        writer.release()
+        t0 = time.perf_counter()
+        kind, data = decode_video(mp4, ingest="bgr")
+        r["decode_ms"] = (time.perf_counter() - t0) * 1e3
+        if kind != "bgr" or (len(data[0]), len(data[2])) != (FRAMES, PAIRS):
+            raise AssertionError(f"(e) the mp4 decoded as {kind}, {len(data[0])} frames, {len(data[2])} pairs")
+        want = fx.video_feature(*data)
+        reset_counts()
+        vec = pred.enqueue_file(mp4, ingest="bgr").cpu().numpy()
+        r["launches"] = check_counts("(e) predict_file on the mp4", {"K1": per_flow, "K2": per_flow, "K3": depth})
+        r["mos"] = pred.predict_feature(vec)
+        print(f"  (e) the mp4 through {'libav' if r['native_loads'] else 'cv2'} and the BGR program: decode {r['decode_ms']:.1f} ms, "
+              f"MOS {r['mos']!r}, vector equal to the BGR program's on the decoded frames: "
+              f"{np.array_equal(vec, want)}")
+        if not (np.array_equal(vec, want) and math.isfinite(r["mos"])):
+            raise AssertionError(f"(e) the mp4's vector or MOS ({r['mos']}) is wrong")
+    lap("e")
+
+    print(f"  (f) warmup {H}x{W} x {FRAMES}, and the link probe")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["warmup", "--resolutions", f"{H}x{W}", "--counts", str(FRAMES)])
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()]
+    print(f"  (f) warmup records: {recs}")
+    if [(x["resolution"], x["frames"], x["pairs"]) for x in recs] != [(f"{H}x{W}", FRAMES, PAIRS)]:
+        raise AssertionError(f"(f) warmup printed {recs}")
+    link = measure_link()
+    mode = pick_serving_mode(fbuf.nbytes + nbuf.nbytes, link)
+    out["f"] = {"warmup": recs, "link": link, "serving_mode": mode}
+    print(f"  (f) measure_link: {link}; pick_serving_mode for {fbuf.nbytes + nbuf.nbytes} B a video: {mode}")
+    lap("f")
+
+    print("  (g) a CUDA index other than 0")
+    try:
+        resolve_device("cuda:1")
+    except ValueError as e:
+        out["g"] = str(e)
+        print(f"  (g) resolve_device('cuda:1') raised: {e}")
+    else:
+        raise AssertionError("(g) resolve_device('cuda:1') was accepted")
+    del fx, pred
+    torch.cuda.empty_cache()
+    shutil.rmtree(INGEST_DIR)
+    lap("g")
+    print(f"  phase 9 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1526,6 +1770,9 @@ def main() -> int:
     print("[8] extraction: extract in every mode at 1080p, CUDA vs CPU, VGG-16, --profile-dir")
     extraction = run_extraction()
 
+    print("[9] ingest: BGR against I420, predict_arrays, predict_batch grouping, no pairs, decoder, warmup")
+    ingest = run_ingest()
+
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
                "K3": ("mha", "relaxtpu_torch/csrc/attention.cu", "relaxtpu/ops/attention.py:34")}
@@ -1554,7 +1801,7 @@ def main() -> int:
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
                    "main_path": main_res, "serving": serving, "training": training,
-                   "extraction": extraction}, fh, indent=1)
+                   "extraction": extraction, "ingest": ingest}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -116,10 +116,11 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call a C entry point on the current stream; raise on a CUDA error."""
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call a C entry point on the current stream of ``device`` (the
+    device of the tensors it reads); raise on a CUDA error."""
     fn = _fns.get(name) or getattr(lib(), name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -1,24 +1,28 @@
 """relaxtpu_torch CLI (counterpart of ``relaxtpu/cli/__main__.py``).
 
-Subcommands ``predict`` (one video), ``predict-batch`` (many videos,
-streamed or batched) and ``serve`` (JSON lines on stdin).  The port reads
-raw I420 ``.yuv`` files only, so each takes the clip geometry as flags.
-Example::
+Scoring: ``predict`` (one video), ``predict-batch`` (many videos, streamed
+or batched, grouped by resolution), ``serve`` (JSON lines on stdin) and
+``warmup``.  Containers (mp4, mkv, avi, webm) need the native libav
+decoder or cv2 on the host; ``--ingest`` picks BGR or I420 upload for
+them.  Raw I420 ``.yuv`` files take their geometry as flags.  Example::
 
-    python -m relaxtpu_torch.cli predict --video v.yuv --width 960 \
-        --height 540 --framerate 24 --model mlp.npz \
+    python -m relaxtpu_torch.cli predict --video v.mp4 --model mlp.npz \
         --imputer konvid_1k_imputer.pkl --scaler konvid_1k_scaler.pkl
 
 Extraction: ``extract`` writes a dataset's features into relaxtpu's store
 (``<output>/<tag>/video_<i+1>.npy``, ``<output>/<tag>_features.npy``,
 ``--save-mat``) for the full model (``--mode full``, the 35,203 vector) or
 one of the reference's ablation modes, resumes where a store has a video,
-and prints one JSON line.  It reads the dataset's raw ``.yuv`` files with
-the geometry of each metadata row (``framerate``, ``width``, ``height``).
-Example::
+and prints one JSON line.  A raw ``.yuv`` dataset takes each video's
+``framerate``, ``width`` and ``height`` from its metadata row; a container
+is probed for what its row lacks.  Example::
 
-    python -m relaxtpu_torch.cli extract --dataset live_qualcomm \
+    python -m relaxtpu_torch.cli extract --dataset konvid_1k \
         --metadata-csv meta.csv --root data --mode optical_flow --network vit
+
+Dataset tools (host only, no ``--device``): ``metadata`` (the metadata CSV
+from a directory, an info ``.mat`` or a source CSV) and ``greyscale`` (the
+report of greyscale videos, read through cv2).
 
 Training: ``train`` (repeated holdout), ``train-lsvq`` (LSVQ fixed split),
 ``finetune`` (cross-dataset, or ``--zero-shot``) and ``train-cross``, with
@@ -37,17 +41,17 @@ import concurrent.futures as cf
 import contextlib
 import csv
 import glob
-import itertools
 import json
 import logging
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
-from relaxtpu_torch.io.video import decode_video_inputs_i420
-from relaxtpu_torch.ops.colorspace import unpack_i420, yuv420_to_bgr
+from relaxtpu_torch.io.video import _clean_meta, decode_video
+from relaxtpu_torch.ops.colorspace import bgr_to_yuv420, pack_i420, unpack_i420, yuv420_to_bgr
 
 log = logging.getLogger("relaxtpu_torch.cli")
 
@@ -92,13 +96,24 @@ def _load_predictor(args, extractor):
     )
 
 
-def serve_loop(predictor, requests, out, in_flight: int = 2, defaults: dict | None = None) -> None:
+def _geometry(path: str, framerate, width, height, defaults: dict) -> dict:
+    """A request's decode geometry: what it gives, and for a raw ``.yuv``
+    file the defaults for what it lacks (a container carries its own)."""
+    given = dict(framerate=framerate, width=width, height=height)
+    if path.endswith(".yuv"):
+        given = {k: defaults.get(k) if v is None else v for k, v in given.items()}
+    return given
+
+
+def serve_loop(predictor, requests, out, in_flight: int = 2, defaults: dict | None = None,
+               ingest: str = "auto") -> None:
     """The scoring server: JSON-lines requests -> JSON-lines responses.
 
     A request is a bare path or ``{"video", "framerate", "width",
-    "height"}``; fields it lacks come from ``defaults``.  ``out`` gets
-    ``{"status": "ready"}`` first, then one response a request, in request
-    order: ``{"video", "predicted_mos"}`` or ``{"video", "error"}``.  Up to
+    "height"}``; a raw ``.yuv`` request takes what it lacks from
+    ``defaults``, a container is probed.  ``out`` gets ``{"status":
+    "ready"}`` first, then one response a request, in request order:
+    ``{"video", "predicted_mos"}`` or ``{"video", "error"}``.  Up to
     ``in_flight`` videos stay enqueued on the device while later requests
     decode on the host.
     """
@@ -130,50 +145,86 @@ def serve_loop(predictor, requests, out, in_flight: int = 2, defaults: dict | No
         except ValueError as e:
             pending.append((None, None, f"bad request: {e}"))
         else:
-            geometry = {k: req.get(k, defaults.get(k)) for k in ("framerate", "width", "height")}
+            path = req["video"]
             try:
-                pending.append((req["video"], predictor.enqueue_file(req["video"], **geometry), None))
+                geometry = _geometry(path, req.get("framerate"), req.get("width"), req.get("height"), defaults)
+                pending.append((path, predictor.enqueue_file(path, **geometry, ingest=ingest), None))
             except Exception as e:  # one bad request must not stop the server
-                log.exception("request for %s failed", req["video"])
-                pending.append((req["video"], None, str(e)))
+                log.exception("request for %s failed", path)
+                pending.append((path, None, str(e)))
         while len(pending) > in_flight:
             emit(*pending.popleft())
     while pending:
         emit(*pending.popleft())
 
 
-def predict_batch(predictor, paths, framerate, width, height, batch: int = 1,
-                  decode_workers: int = 4) -> list[tuple[str, float]]:
-    """MOS of every raw I420 file in ``paths`` -> [(path, mos)] in input order.
+def predict_batch(predictor, paths, decode, batch=1, decode_workers: int = 4) -> list[tuple[str, float]]:
+    """MOS of every video in ``paths`` -> [(path, mos)] in input order.
 
-    Host threads decode ahead of the device.  ``batch`` 1 sends each video
-    through the single-video program; ``batch`` N > 1 sends runs of N
-    videos through the batched program.  Two programs stay enqueued while
-    the next run decodes.  Every file shares one geometry,
-    so every run is of one resolution.
+    ``decode(path)`` gives ``io.video.decode_video``'s ``(kind, data)``;
+    host threads run it ahead of the device.  I420-decoded videos are
+    grouped by (h, w): with ``batch`` N > 1 each group's runs of N videos go
+    through the batched program, with ``batch`` 1 each video through the
+    single-video program; ``"auto"`` picks one of the two from a link probe
+    at the first I420 video (``utils.linkprobe``).  A BGR-decoded video goes
+    through the BGR program (``predict_arrays``' program), on its own.  Two
+    programs stay enqueued while later videos decode; a group left short of
+    N runs at the end.
     """
     extractor = predictor.extractor
-    mos, pending = [], collections.deque()
+    mos = [None] * len(paths)
+    pending, groups = collections.deque(), {}  # groups: (h, w) -> [(index, fbuf, nbuf)]
+
+    def drain(limit: int) -> None:
+        while len(pending) > limit:
+            indices, vecs = pending.popleft()
+            for i, v in zip(indices, vecs.cpu()):
+                mos[i] = predictor.predict_feature(v)
+
+    def run_group(key) -> None:
+        items, (h, w) = groups.pop(key), key
+        if len(items) == 1:
+            vecs = extractor.video_feature_async_i420(items[0][1], items[0][2], h, w)[None]
+        else:
+            vecs = extractor.video_features_batch_i420([it[1] for it in items], [it[2] for it in items], h, w)
+        pending.append(([it[0] for it in items], vecs))
+        drain(2)
+
     with cf.ThreadPoolExecutor(max_workers=decode_workers) as pool:
-        decoded = pool.map(lambda p: decode_video_inputs_i420(p, framerate, width, height), paths)
-        while run := list(itertools.islice(decoded, max(batch, 1))):
-            h, w = run[0][2], run[0][3]
-            if len(run) == 1:
-                vecs = extractor.video_feature_async_i420(*run[0])[None]
-            else:
-                vecs = extractor.video_features_batch_i420([d[0] for d in run], [d[1] for d in run], h, w)
-            pending.append(vecs)
-            while len(pending) > 2:
-                mos += [predictor.predict_feature(v) for v in pending.popleft().cpu()]
-        while pending:
-            mos += [predictor.predict_feature(v) for v in pending.popleft().cpu()]
+        for i, (kind, data) in enumerate(pool.map(decode, paths)):
+            if kind == "bgr":
+                pending.append(([i], extractor.video_feature_async(*data)[None]))
+                drain(2)
+                continue
+            fbuf, nbuf, h, w = data
+            if batch == "auto":
+                from relaxtpu_torch.utils.linkprobe import measure_link, pick_serving_mode
+
+                batch, reason = pick_serving_mode(fbuf.nbytes + nbuf.nbytes,
+                                                  measure_link(n_mb=16, reps=1, device=extractor.device))
+                log.info("serving mode: %s", reason)
+            groups.setdefault((h, w), []).append((i, fbuf, nbuf))
+            if len(groups[(h, w)]) >= batch:
+                run_group((h, w))
+        for key in list(groups):
+            run_group(key)
+        drain(0)
     return list(zip(paths, mos))
 
 
+CONTAINERS = ("*.mp4", "*.mkv", "*.avi", "*.webm")
+
+
 def _video_paths(items) -> list[str]:
+    """Files as given; a directory gives its containers (each pattern of
+    ``CONTAINERS`` sorted, in turn) and then its raw ``.yuv`` files."""
     paths = []
     for v in items:
-        paths += sorted(glob.glob(os.path.join(v, "*.yuv"))) if os.path.isdir(v) else [v]
+        if os.path.isdir(v):
+            for pattern in (*CONTAINERS, "*.yuv"):
+                paths += sorted(glob.glob(os.path.join(v, pattern)))
+        else:
+            paths.append(v)
     if not paths:
         raise SystemExit("no videos found")
     return paths
@@ -181,16 +232,20 @@ def _video_paths(items) -> list[str]:
 
 def cmd_predict(args):
     predictor = _load_predictor(args, _build_extractor(args))
-    mos = predictor.predict_file(args.video, framerate=args.framerate,
-                                 width=args.width, height=args.height)
+    mos = predictor.predict_file(args.video, framerate=args.framerate, width=args.width,
+                                 height=args.height, ingest=args.ingest)
     print(json.dumps({"video": args.video, "predicted_mos": mos}))
 
 
 def cmd_predict_batch(args):
     paths = _video_paths(args.videos)
     predictor = _load_predictor(args, _build_extractor(args))
-    rows = predict_batch(predictor, paths, args.framerate, args.width, args.height,
-                         batch=args.batch, decode_workers=args.decode_workers)
+    flags = dict(framerate=args.framerate, width=args.width, height=args.height)
+
+    def decode(path):
+        return decode_video(path, **_geometry(path, None, None, None, flags), ingest=args.ingest)
+
+    rows = predict_batch(predictor, paths, decode, batch=args.batch, decode_workers=args.decode_workers)
     for path, mos in rows:
         print(json.dumps({"video": path, "predicted_mos": mos}))
     if args.output_csv:
@@ -200,10 +255,42 @@ def cmd_predict_batch(args):
             writer.writerows(rows)
 
 
+def warm_programs(extractor, resolutions, counts, ingest: str = "auto"):
+    """Run each video program once for every resolution ("HxW") and count
+    (c frames and c pairs of seeded random frames), fetching the vector;
+    yields one record each, as the JAX package's warm-up does, with
+    ``compile_s`` the seconds of that first call.  Eager PyTorch compiles
+    no program: the first calls build and load the kernel library, fill the
+    resize-matrix cache for the resolution and warm cuDNN and cuBLAS.  I420
+    ingest runs for ``yuv`` and ``auto`` at even dimensions, BGR for ``bgr``
+    and ``auto``."""
+    for res in resolutions:
+        h, w = (int(v) for v in res.lower().split("x"))
+        rng = np.random.default_rng(0)
+        for c in sorted({int(c) for c in counts}):
+            frames = rng.integers(0, 256, (c, h, w, 3), dtype=np.uint8)
+            nxt = rng.integers(0, 256, (c, h, w, 3), dtype=np.uint8)
+            t0 = time.perf_counter()
+            if ingest in ("yuv", "auto") and h % 2 == 0 and w % 2 == 0:
+                fbuf, nbuf = pack_i420(*bgr_to_yuv420(frames)), pack_i420(*bgr_to_yuv420(nxt))
+                extractor.video_feature_async_i420(fbuf, nbuf, h, w).cpu()
+            if ingest in ("bgr", "auto"):
+                extractor.video_feature_async(frames, frames, nxt).cpu()
+            yield {"resolution": res, "frames": c, "pairs": c, "bucket": 1,
+                   "compile_s": round(time.perf_counter() - t0, 3)}
+
+
+def cmd_warmup(args):
+    for rec in warm_programs(_build_extractor(args), args.resolutions, args.counts, args.ingest):
+        print(json.dumps(rec))
+
+
 def cmd_serve(args):
     predictor = _load_predictor(args, _build_extractor(args))
+    for rec in warm_programs(predictor.extractor, args.warm or (), args.warm_counts, args.ingest):
+        log.info("warmed %s", rec)
     serve_loop(predictor, sys.stdin, sys.stdout, args.in_flight,
-               dict(framerate=args.framerate, width=args.width, height=args.height))
+               dict(framerate=args.framerate, width=args.width, height=args.height), args.ingest)
 
 
 def _single_layer_frames(ablation, network: str, layer: str, frames: torch.Tensor) -> torch.Tensor:
@@ -212,12 +299,12 @@ def _single_layer_frames(ablation, network: str, layer: str, frames: torch.Tenso
     return ablation.features_from_images(network, layer, frames)
 
 
-def _extract_one(extractor, ablation, mode: str, network: str, layer: str,
-                 fbuf, nbuf, h: int, w: int) -> torch.Tensor:
+def _extract_one(extractor, ablation, mode: str, network: str, layer: str, kind: str, data) -> torch.Tensor:
     """One video's stored features for ``mode``, on the device, not fetched.
 
-    ``full``: the (35203,) vector of the single-video program, enqueued
-    without waiting.  Else the per-frame or per-pair matrix of the
+    ``kind, data``: ``io.video.decode_video``'s result, I420 stacks or BGR
+    frames.  ``full``: the (35203,) vector of the single-video program,
+    enqueued without waiting.  Else the per-frame or per-pair matrix of the
     reference's ablation scripts; only the networks whose output is stored
     run.  ``layer_stack`` and ``layer`` with ``vit``: the frames' ViT stats;
     ``layer_stack``: the frames' ResNet layer stack; ``layer`` with
@@ -227,36 +314,43 @@ def _extract_one(extractor, ablation, mode: str, network: str, layer: str,
     ``max_pair_batch`` pairs at a time.
     """
     if mode == "full":
-        return extractor.video_feature_async_i420(fbuf, nbuf, h, w)
-    frames = yuv420_to_bgr(*unpack_i420(extractor._upload([fbuf]), h, w))
-    if mode in ("layer_stack", "layer"):
+        if kind == "i420":
+            return extractor.video_feature_async_i420(*data)
+        return extractor.video_feature_async(*data)
+    frame_modes = mode in ("layer_stack", "layer")  # the rest read only the pairs
+    if kind == "i420":
+        fbuf, nbuf, h, w = data
+        frames = yuv420_to_bgr(*unpack_i420(extractor._upload([fbuf]), h, w))
+        if not frame_modes:  # the pairs' first frames are the sampled frames
+            nxt = yuv420_to_bgr(*unpack_i420(extractor._upload([nbuf]), h, w))
+            prev = frames[: len(nxt)]
+    elif frame_modes:
+        frames = extractor._upload([data[0]])
+    else:
+        frames, prev, nxt = extractor._upload_bgr(*data)
+    if frame_modes:
         if network == "vit":
             return extractor.frame_features_dev(frames, ("vit",))[1]
         if mode == "layer_stack":
             return extractor.frame_features_dev(frames, ("resnet50",))[0]
         return _single_layer_frames(ablation, network, layer, frames)
-    nxt = yuv420_to_bgr(*unpack_i420(extractor._upload([nbuf]), h, w))
-    prev = frames[: len(nxt)]  # the pairs' first frames are the sampled frames
     if mode == "fragment_layerstack":
         return extractor.pair_features_dev(prev, nxt, ("resnet50",))[0]
     if mode == "fragment_pool":
         return extractor.pair_features_dev(prev, nxt, ("vit",))[1]
-    step = extractor.max_pair_batch(h, w)
+    step = extractor.max_pair_batch(prev.shape[1], prev.shape[2])
     return torch.cat([ablation.pair_features_dev(mode, network, layer, prev[s : s + step], nxt[s : s + step])
                       for s in range(0, len(prev), step)])
 
 
-def _row_geometry(meta: dict, i: int) -> tuple[float, int, int]:
-    """framerate, width and height of row ``i`` of the metadata: a raw .yuv
-    file carries none of them, so each is required."""
+def _row_geometry(meta: dict, i: int) -> tuple:
+    """framerate, width and height of row ``i`` of the metadata, None where
+    the row or the metadata has none (``io.video`` requires them of a raw
+    .yuv file and probes a container for them)."""
     out = []
     for col, cast in (("framerate", float), ("width", int), ("height", int)):
-        if col not in meta:
-            raise ValueError(f"the metadata has no {col!r} column, which a raw .yuv file needs")
-        value = str(meta[col][i]).strip()
-        if value.lower() in ("", "nan"):
-            raise ValueError(f"video {meta['vid'][i]}: no {col!r} in the metadata, which a raw .yuv file needs")
-        out.append(cast(float(value)))
+        value = _clean_meta(meta[col][i]) if col in meta else None
+        out.append(None if value is None else cast(float(value)))
     return tuple(out)
 
 
@@ -265,7 +359,6 @@ def cmd_extract(args):
     from relaxtpu_torch.device import resolve_device
     from relaxtpu_torch.features.ablation import AblationExtractor
     from relaxtpu_torch.io.datasets import data_root, get_dataset, load_metadata, read_metadata_csv
-    from relaxtpu_torch.io.video import require_raw_yuv
     from relaxtpu_torch.utils.profiling import trace_to
 
     resolve_device(args.device)
@@ -274,7 +367,6 @@ def cmd_extract(args):
                                   "ported yet (the multi-device item of ROADMAP.md's Queue 1)")
     spec = get_dataset(args.dataset)
     root = data_root(args.root)
-    require_raw_yuv(spec.video_path(root, ""))
     meta = read_metadata_csv(args.metadata_csv) if args.metadata_csv else load_metadata(spec, args.metadata_dir)
     n = len(meta["vid"])
     store = FeatureStore(args.output)
@@ -286,11 +378,13 @@ def cmd_extract(args):
     # full: up to --dispatch-ahead vectors stay enqueued on the device while
     # later videos decode; the ablation modes store each video at once
     ahead = args.dispatch_ahead if args.mode == "full" else 0
+    # the ablation modes decode BGR, as the JAX CLI's do
+    ingest = args.ingest if args.mode == "full" else "bgr"
     pending = collections.deque()  # (index, features on the device)
 
     def decode(i: int):
         path = spec.video_path(root, str(meta["vid"][i]))
-        return decode_video_inputs_i420(path, *_row_geometry(meta, i))
+        return decode_video(path, *_row_geometry(meta, i), ingest=ingest)
 
     def drain(limit: int) -> None:
         while len(pending) > limit:
@@ -318,6 +412,39 @@ def cmd_extract(args):
     if args.save_mat:
         store.save_mat(tag, n, args.save_mat, key=args.dataset)
     print(json.dumps({"dataset": args.dataset, "mode": args.mode, "shape": list(mat.shape)}))
+
+
+def cmd_metadata(args):
+    """The dataset metadata CSV: an info ``.mat``, a source CSV, or a scan
+    of ``--video-dir``."""
+    from relaxtpu_torch.io.metadata import extract_metadata, metadata_from_csv, metadata_from_info_mat, write_csv
+
+    if args.info_mat:
+        columns, rows = metadata_from_info_mat(args.info_mat, args.video_dir, video_type=args.video_type,
+                                               framerate_hint=args.framerate)
+    elif args.csv:
+        columns, rows = metadata_from_csv(args.csv, args.video_dir, video_type=args.video_type)
+    else:
+        columns, rows = extract_metadata(args.video_dir)
+    write_csv(args.output, columns, rows)
+    print(json.dumps({"output": args.output, "n_videos": len(rows)}))
+
+
+def cmd_greyscale(args):
+    """The greyscale-video report of a dataset (the reference's
+    ``check_greyscale.py``), read through cv2."""
+    from relaxtpu_torch.data.greyscale import greyscale_report, write_report
+    from relaxtpu_torch.io.datasets import data_root, get_dataset, load_metadata, read_metadata_csv
+
+    spec = get_dataset(args.dataset)
+    meta = read_metadata_csv(args.metadata_csv) if args.metadata_csv else load_metadata(spec, args.metadata_dir)
+    root = data_root(args.root)
+    rows = greyscale_report(meta, lambda vid: spec.video_path(root, str(vid)), progress=log.info)
+    out = args.output or os.path.join(args.metadata_dir, "greyscale_report",
+                                      f"{args.dataset.upper()}_greyscale_metadata.csv")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    write_report(out, rows)
+    print(json.dumps({"output": out, "n_greyscale": len(rows)}))
 
 
 def _grey_indices_for(args, dataset: str):
@@ -495,53 +622,80 @@ def _add_geometry_flags(sp, what: str) -> None:
     sp.add_argument("--height", type=int, default=None, help=f"height of {what}")
 
 
+def _add_ingest_flag(sp) -> None:
+    sp.add_argument("--ingest", default="auto", choices=["bgr", "yuv", "auto"],
+                    help="containers: auto (default) uploads the decoder's I420 (1.5 bytes a "
+                    "pixel, converted on the device) where the native decoder gives it, else BGR; "
+                    "yuv: I420 or an error; bgr: BGR converted on the host.  A raw .yuv file "
+                    "gives the JAX package's frames in every mode")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="relaxtpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("predict", help="one raw I420 .yuv video -> MOS")
+    sp = sub.add_parser("predict", help="one video -> MOS")
     sp.add_argument("--video", required=True)
     _add_model_flags(sp)
-    _add_geometry_flags(sp, "the raw video")
-    sp.add_argument("--ingest", default="auto", choices=["bgr", "yuv", "auto"],
-                    help="accepted for compatibility: a .yuv file gives the same "
-                    "frames in every mode (the device converter bit-matches the "
-                    "host one)")
+    _add_geometry_flags(sp, "a raw .yuv video (a container carries its own)")
+    _add_ingest_flag(sp)
     sp.set_defaults(fn=cmd_predict)
 
     sp = sub.add_parser(
-        "predict-batch", help="MOS for many raw I420 .yuv videos, streamed or batched",
-        description="Unlike the JAX CLI, this one reads raw I420 .yuv files only (a "
-        "directory means its *.yuv files), so --framerate, --width and --height are "
-        "required and apply to every video.",
+        "predict-batch", help="MOS for many videos, streamed or batched",
+        description="A directory gives its *.mp4, *.mkv, *.avi and *.webm files, then its raw "
+        "*.yuv files, which take --framerate, --width and --height.  I420-decoded videos are "
+        "grouped by resolution into batched or streamed runs; BGR-decoded ones run one by one.",
     )
-    sp.add_argument("--videos", nargs="+", required=True,
-                    help=".yuv files and/or directories of them")
+    sp.add_argument("--videos", nargs="+", required=True, help="video files and/or directories")
     _add_model_flags(sp)
-    _add_geometry_flags(sp, "every video")
-    sp.add_argument("--batch", type=int, default=1,
+    _add_geometry_flags(sp, "every raw .yuv video")
+    _add_ingest_flag(sp)
+    sp.add_argument("--batch", type=lambda v: v if v == "auto" else int(v), default=1,
                     help="videos a device program: 1 (default) streams each video through "
-                    "the single-video program, N > 1 sends runs of N videos through the "
-                    "batched program; either way 2 programs stay enqueued")
+                    "the single-video program, N > 1 sends runs of N videos of one resolution "
+                    "through the batched program (either way 2 programs stay enqueued); "
+                    "'auto' probes the host-to-device link and picks one of the two")
     sp.add_argument("--decode-workers", type=int, default=4, help="host decode threads")
     sp.add_argument("--output-csv", default=None, help="also write a video,predicted_mos CSV")
     sp.set_defaults(fn=cmd_predict_batch)
 
     sp = sub.add_parser(
         "serve", help="scoring server: JSON-lines requests on stdin -> JSON lines on stdout",
-        description="A request is a bare .yuv path or {\"video\", \"framerate\", \"width\", "
-        "\"height\"}; the geometry flags fill what a request lacks.",
+        description="A request is a bare path or {\"video\", \"framerate\", \"width\", "
+        "\"height\"}; the geometry flags fill what a raw .yuv request lacks.",
     )
     _add_model_flags(sp)
-    _add_geometry_flags(sp, "requests that do not give it")
+    _add_geometry_flags(sp, "raw .yuv requests that do not give it")
+    _add_ingest_flag(sp)
     sp.add_argument("--in-flight", type=int, default=2,
                     help="videos left enqueued on the device while later requests decode")
+    sp.add_argument("--warm", nargs="*", default=None, metavar="HxW",
+                    help="resolutions to run each program at once before serving, e.g. 540x960 "
+                    "(see warmup)")
+    sp.add_argument("--warm-counts", nargs="*", type=int, default=(8, 16, 32),
+                    help="frame and pair counts to warm at each --warm resolution")
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser(
+        "warmup", help="run each video program once per resolution and count",
+        description="Eager PyTorch compiles no program: the first calls build and load the CUDA "
+        "kernel library, fill the resize-matrix cache of each resolution and warm cuDNN and "
+        "cuBLAS, which is what this does ahead of the first video.  One JSON record a resolution "
+        "and count; compile_s is the seconds of that first call.",
+    )
+    sp.add_argument("--resolutions", nargs="+", default=["540x960", "1080x1920"],
+                    help="HxW list, e.g. 540x960 720x1280")
+    sp.add_argument("--counts", nargs="+", type=int, default=[8, 16, 32],
+                    help="frame and pair counts to run at each resolution")
+    _add_ingest_flag(sp)
+    _add_backbone_flags(sp)
+    sp.set_defaults(fn=cmd_warmup)
+
+    sp = sub.add_parser(
         "extract", help="a dataset's features into relaxtpu's per-video store",
-        description="Unlike the JAX CLI, this one reads raw I420 .yuv datasets only; each "
-        "video's framerate, width and height come from its metadata row.",
+        description="A raw .yuv dataset takes each video's framerate, width and height from its "
+        "metadata row; a container is probed for what its row lacks.",
     )
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--root", default=None, help="data root (default: $RELAXTPU_DATA_ROOT or .)")
@@ -570,12 +724,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--mode full: videos left enqueued on the device while later ones decode")
     sp.add_argument("--profile-dir", default=None, help="write a torch.profiler Chrome trace here")
     sp.add_argument("--ingest", default="auto", choices=["bgr", "yuv", "auto"],
-                    help="accepted for compatibility: a .yuv file gives the same frames in every "
-                    "mode (the device converter bit-matches the host one)")
+                    help="--mode full on containers: auto (default) uploads the decoder's I420 "
+                    "where it gives it (the metadata's geometry must be the stream's), else BGR; "
+                    "the ablation modes decode BGR")
     sp.add_argument("--n-data", type=int, default=None, help="above 1: not ported (multi-device)")
     sp.add_argument("--n-model", type=int, default=1, help="above 1: not ported (multi-device)")
     _add_backbone_flags(sp)
     sp.set_defaults(fn=cmd_extract)
+
+    sp = sub.add_parser("metadata", help="a dataset's metadata CSV (host only)")
+    sp.add_argument("--video-dir", required=True)
+    sp.add_argument("--output", default="metadata.csv")
+    sp.add_argument("--video-type", default="generic",
+                    choices=["generic", "lsvq", "live_vqc", "cvd_2014", "live_qualcomm"])
+    sp.add_argument("--info-mat", default=None, help="CVD2014/LIVE-Qualcomm info .mat")
+    sp.add_argument("--csv", default=None, help="LSVQ/LIVE-VQC source csv")
+    sp.add_argument("--framerate", type=float, default=None, help=".yuv framerate hint")
+    sp.set_defaults(fn=cmd_metadata)
+
+    sp = sub.add_parser("greyscale", help="a dataset's greyscale-video report (host only, cv2)")
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--root", default=None, help="data root (default: $RELAXTPU_DATA_ROOT or .)")
+    sp.add_argument("--metadata-dir", default="metadata")
+    sp.add_argument("--metadata-csv", default=None)
+    sp.add_argument("--output", default=None)
+    sp.set_defaults(fn=cmd_greyscale)
 
     sp = sub.add_parser("train", help="repeated-holdout training of the MLP head")
     sp.add_argument("--dataset", default="konvid_1k")

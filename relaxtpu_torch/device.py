@@ -12,8 +12,15 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means CUDA.  A CUDA device without CUDA raises."""
+    """``None`` means CUDA.  A CUDA device without CUDA raises, and so does
+    a CUDA index other than 0: the kernel library keeps per-process state
+    for one device, and the multi-device paths are not ported yet."""
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index not in (None, 0):
+        raise ValueError(
+            f"{dev}: the port runs on CUDA device 0 only; other devices wait for the "
+            "multi-device item of ROADMAP.md's Queue 1"
+        )
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"

@@ -16,8 +16,9 @@ device form that takes and returns tensors on the device.
 
 Three programs share these stages:
 
-- one video (``video_feature_async_i420``): one backbone batch of F + 2P
-  images;
+- one video (``video_feature_async_i420`` from packed I420, which it
+  converts to BGR on the device; ``video_feature_async`` from BGR): one
+  backbone batch of F + 2P images (F with no pairs);
 - many videos of one resolution (``video_features_batch_i420``): the
   videos' rows concatenated ragged, the flow over the flat pair axis in
   chunks of ``max_pair_batch`` pairs, one backbone batch of sum(F) +
@@ -26,7 +27,7 @@ Three programs share these stages:
   the frames once, then one backbone batch per chunk of pairs, the sums
   added on the device.
 
-The I420 entry points upload through pinned memory without blocking and
+The async entry points upload through pinned memory without blocking and
 return the vector on the device without waiting for it, so the host can
 decode the next video while this one computes.  All work stays on the
 current stream.  PyTorch runs eagerly, so nothing is padded to shape
@@ -44,7 +45,7 @@ from relaxtpu_torch.features.aggregate import layer_stack_feature, resnet_pool_f
 from relaxtpu_torch.features.layout import TOTAL_FEATURE_DIM
 from relaxtpu_torch.models.resnet import ResNet50, resnet_preprocess
 from relaxtpu_torch.models.vit import ViT
-from relaxtpu_torch.ops.colorspace import bgr_to_gray, flow_to_bgr, unpack_i420, yuv420_to_bgr
+from relaxtpu_torch.ops.colorspace import bgr_to_gray, flow_to_bgr, pack_i420, unpack_i420, yuv420_to_bgr
 from relaxtpu_torch.ops.flow import farneback_flow
 from relaxtpu_torch.ops.fragments import (
     absdiff,
@@ -87,6 +88,16 @@ def prev_frame_runs(n_frames, n_pairs, start: int, stop: int) -> list[tuple[int,
             runs.append((f0 + lo - p0, f0 + hi - p0))
         f0, p0 = f0 + nf, p0 + npair
     return runs
+
+
+def is_prefix_view(prev: np.ndarray, frames: np.ndarray) -> bool:
+    """Whether ``prev`` is the first rows of ``frames`` (a view of the same
+    buffer from its start), so uploading frames uploads prev too."""
+    return prev is frames or (
+        len(prev) <= len(frames) and prev.shape[1:] == frames.shape[1:]
+        and prev.strides == frames.strides and prev.dtype == frames.dtype
+        and prev.__array_interface__["data"][0] == frames.__array_interface__["data"][0]
+    )
 
 
 def take_rows(x: torch.Tensor, runs) -> torch.Tensor:
@@ -188,18 +199,23 @@ class FeatureExtractor:
         uint8 BGR; ``pairs(start, stop)`` gives the BGR (prev, next) of the
         flat pairs ``start..stop-1``.  The flow stage runs over the flat
         pair axis in chunks of ``chunk`` pairs (0: one chunk); each backbone
-        sees ONE batch of sum(F) + 2 sum(P) images.
+        sees ONE batch of sum(F) + 2 sum(P) images.  A video with no pairs
+        gets NaN in its 19,779 fragment entries, as in the JAX package.
         """
         f, p = sum(n_frames), sum(n_pairs)
-        step = chunk or p
+        step = chunk or max(p, 1)
         ori, merged = [], []
         for s in range(0, p, step):
             o, m = self._fragments(*pairs(s, min(s + step, p)))
             ori.append(o)
             merged.append(m)
-        x_rn_f, x_vit_f = self._backbone_inputs(frames, resize=True)
-        x_rn_p, x_vit_p = self._backbone_inputs(torch.cat(ori + merged), resize=False)
-        stack, pool, vit = self._backbones(torch.cat([x_rn_f, x_rn_p]), torch.cat([x_vit_f, x_vit_p]))
+        x_rn, x_vit = self._backbone_inputs(frames, resize=True)
+        if p:  # with no pairs the backbones see the frames alone
+            x_rn_p, x_vit_p = self._backbone_inputs(torch.cat(ori + merged), resize=False)
+            x_rn, x_vit = torch.cat([x_rn, x_rn_p]), torch.cat([x_vit, x_vit_p])
+        stack, pool, vit = self._backbones(x_rn, x_vit)
+        # a video with no pairs has empty fragment rows, whose means are NaN
+        # (the JAX package's masked means divide by a count of 0)
         frag_rn, frag_vit = self._fragment_rows(stack[f:], pool[f:], vit[f:], p)
         segments = zip(stack[:f].split(n_frames), vit[:f].split(n_frames),
                        frag_rn.split(n_pairs), frag_vit.split(n_pairs))
@@ -234,6 +250,18 @@ class FeatureExtractor:
         np.concatenate(arrays, out=host.numpy())
         return host.to(self.device, non_blocking=True)
 
+    def _upload_bgr(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8):
+        """Three BGR stacks -> (frames, prev, nxt) on the device.  Where prev
+        is a prefix view of frames (``io.video.decode_video_inputs`` gives
+        one), frames go up once and prev is their first rows on the device."""
+        f, p = np.asarray(frames_bgr_u8), np.asarray(prev_bgr_u8)
+        frames = self._upload([f])
+        if is_prefix_view(p, f):
+            prev = frames[: len(p)]
+        else:
+            prev = self._upload([p])
+        return frames, prev, self._upload([next_bgr_u8])
+
     def _i420_pairs(self, frames, nbuf, h: int, w: int, n_frames, n_pairs):
         """``pairs(start, stop)`` over device I420 successor frames: the
         first frames are rows of ``frames``, the second ones are converted a
@@ -263,6 +291,36 @@ class FeatureExtractor:
         if n_pairs > chunk:
             return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
         return self._videos_vec(frames, pairs, [n_frames], [n_pairs], 0)[0]
+
+    @torch.inference_mode()
+    def video_feature_async(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8) -> torch.Tensor:
+        """BGR stacks (F, H, W, 3), (P, H, W, 3), (P, H, W, 3) uint8 -> the
+        (35203,) f32 vector on the device, enqueued without waiting for it.
+
+        The stacks go up through pinned memory without blocking, frames once
+        when prev is a prefix view of them (3 bytes a pixel).  A video with
+        more pairs than ``max_pair_batch`` takes the chunked path, as the
+        I420 program does.
+        """
+        frames, prev, nxt = self._upload_bgr(frames_bgr_u8, prev_bgr_u8, next_bgr_u8)
+        n_pairs = len(nxt)
+        if len(prev) != n_pairs:
+            raise ValueError(f"prev and next must pair up, got {len(prev)} and {n_pairs} frames")
+
+        def pairs(start: int, stop: int):
+            return prev[start:stop], nxt[start:stop]
+
+        chunk = self.max_pair_batch(frames.shape[1], frames.shape[2])
+        if n_pairs > chunk:
+            return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
+        return self._videos_vec(frames, pairs, [len(frames)], [n_pairs], 0)[0]
+
+    def video_feature_async_yuv(self, frames_yuv, next_yuv) -> torch.Tensor:
+        """(y, u, v) plane stacks, y (B, H, W) and u, v (B, H/2, W/2) uint8,
+        of the sampled frames and of the pairs' second frames -> packed
+        I420 -> :meth:`video_feature_async_i420`."""
+        h, w = np.asarray(frames_yuv[0]).shape[1:3]
+        return self.video_feature_async_i420(pack_i420(*frames_yuv), pack_i420(*next_yuv), h, w)
 
     @torch.inference_mode()
     def video_features_batch_i420(self, frames_i420_list, next_i420_list, h: int, w: int,
@@ -324,11 +382,8 @@ class FeatureExtractor:
         """``video_feature_async_i420`` and the fetch -> (35203,) f32 numpy."""
         return self.video_feature_async_i420(frames_i420, next_i420, h, w).cpu().numpy()
 
-    @torch.inference_mode()
     def video_feature(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8) -> np.ndarray:
-        """(F, H, W, 3), (P, H, W, 3), (P, H, W, 3) uint8 BGR -> (35203,) f32."""
-        frames, prev, nxt = (self._upload([a]) for a in (frames_bgr_u8, prev_bgr_u8, next_bgr_u8))
-        vec = self._videos_vec(frames, lambda s, e: (prev[s:e], nxt[s:e]),
-                               [len(frames)], [len(nxt)], 0)[0].cpu().numpy()
+        """``video_feature_async`` and the fetch -> (35203,) f32 numpy."""
+        vec = self.video_feature_async(frames_bgr_u8, prev_bgr_u8, next_bgr_u8).cpu().numpy()
         assert vec.shape == (TOTAL_FEATURE_DIM,)
         return vec

@@ -56,7 +56,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torc
                          f"in bytes multiples of 16, got strides {q.stride()}")
     o = q.new_empty((b, n, h, d))  # new_empty skips torch.empty's argument parsing on this hot path
     _native.launch(
-        _ENTRY[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _ENTRY[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, n, h, d, q.stride(0), q.stride(1), float(scale),
     )
     mha.launches += 1

@@ -61,7 +61,7 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
     if c != 5:
         raise ValueError(f"M must be the 5 normal-equation planes, got shape {tuple(m.shape)}")
     flow = m.new_empty((p, 2, h, w))  # new_empty skips torch.empty's argument parsing on this hot path
-    _native.launch("relax_box_blur_solve", m.data_ptr(), flow.data_ptr(), p, h, w, winsize)
+    _native.launch("relax_box_blur_solve", m.device, m.data_ptr(), flow.data_ptr(), p, h, w, winsize)
     box_blur_solve.launches += 1
     return flow
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -106,3 +107,30 @@ def unpack_i420(buf: torch.Tensor, h: int, w: int) -> tuple:
     u = buf[:, yb : yb + cb].reshape(-1, h // 2, w // 2)
     v = buf[:, yb + cb :].reshape(-1, h // 2, w // 2)
     return y, u, v
+
+
+def bgr_to_yuv420(img_u8) -> tuple:
+    """Host inverse (numpy): BGR uint8 (..., H, W, 3) -> (y, u, v) I420
+    planes, BT.601 limited range with 2x2 chroma averaging (own copy of
+    ``relaxtpu/ops/colorspace.py:126-144``); ``warmup`` stages decoder-like
+    I420 with it."""
+    img = np.asarray(img_u8, dtype=np.float32)
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    yf = 0.257 * r + 0.504 * g + 0.098 * b + 16.0
+    uf = -0.148 * r - 0.291 * g + 0.439 * b + 128.0
+    vf = 0.439 * r - 0.368 * g - 0.071 * b + 128.0
+
+    def sub(c):
+        return (c[..., 0::2, 0::2] + c[..., 0::2, 1::2] + c[..., 1::2, 0::2] + c[..., 1::2, 1::2]) * 0.25
+
+    def to_u8(c):
+        return np.clip(np.rint(c), 0, 255).astype(np.uint8)
+
+    return to_u8(yf), to_u8(sub(uf)), to_u8(sub(vf))
+
+
+def pack_i420(y, u, v) -> np.ndarray:
+    """Host inverse of :func:`unpack_i420` (numpy): planes (n, H, W),
+    (n, H/2, W/2) x 2 -> packed (n, H*W*3/2)."""
+    n = y.shape[0]
+    return np.concatenate([np.asarray(c).reshape(n, -1) for c in (y, u, v)], axis=1)

@@ -123,7 +123,7 @@ def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor) -> t
             raise ValueError(f"{name} must be {(p, c, h, w)}, got {tuple(t.shape)}")
     m = torch.empty((p, 5, h, w), dtype=torch.float32, device=flow.device)
     _native.launch(
-        "relax_update_matrices", r0.data_ptr(), r1.data_ptr(), flow.data_ptr(),
+        "relax_update_matrices", flow.device, r0.data_ptr(), r1.data_ptr(), flow.data_ptr(),
         m.data_ptr(), p, h, w,
     )
     update_matrices.launches += 1

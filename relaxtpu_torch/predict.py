@@ -15,7 +15,7 @@ import torch
 
 from relaxtpu_torch.data.mos import pred_0_100_to_1_5
 from relaxtpu_torch.features.pipeline import FeatureExtractor
-from relaxtpu_torch.io.video import decode_video_inputs_i420
+from relaxtpu_torch.io.video import decode_video
 from relaxtpu_torch.model.mlp import Mlp
 from relaxtpu_torch.model.scalers import FeatureScaler
 
@@ -54,19 +54,37 @@ class VideoQualityPredictor:
             return float(pred_0_100_to_1_5(pred))
         return pred
 
+    def predict_arrays(self, frames, prev, nxt) -> float:
+        """BGR stacks (F, H, W, 3), (P, H, W, 3), (P, H, W, 3) uint8 -> MOS:
+        the BGR program and the fetch."""
+        return self.predict_feature(self.extractor.video_feature_async(frames, prev, nxt))
+
     def enqueue_file(self, path: str, framerate: float | None = None,
-                     width: int | None = None, height: int | None = None) -> torch.Tensor:
-        """Decode a raw I420 ``.yuv`` file on the host and enqueue its
-        program without waiting -> the pending (35203,) vector on the
-        extractor's device (score it with :meth:`predict_feature`).  The
-        packed I420 stacks go to the device and are converted there
-        (bit-identical to the host converter, so every ingest mode of the
-        JAX package gives these frames for a ``.yuv`` file)."""
-        fbuf, nbuf, h, w = decode_video_inputs_i420(path, framerate, width, height)
-        log.info("decoded %d frames, %d pairs from %s", len(fbuf), len(nbuf), path)
-        return self.extractor.video_feature_async_i420(fbuf, nbuf, h, w)
+                     width: int | None = None, height: int | None = None,
+                     ingest: str = "bgr") -> torch.Tensor:
+        """Decode ``path`` on the host and enqueue its program without
+        waiting -> the pending (35203,) vector on the extractor's device
+        (score it with :meth:`predict_feature`).
+
+        ``ingest`` (``io.video.decode_video``): for a container, ``bgr``
+        converts on the host and uploads BGR (3 bytes a pixel), ``yuv``
+        uploads the decoder's I420 (1.5 bytes a pixel) and converts on the
+        device, ``auto`` takes I420 where the decoder gives it and BGR
+        otherwise.  A raw ``.yuv`` file gives the JAX package's frames in
+        every mode: the native rawvideo decoder's BGR where that loads, else
+        the numpy reader's I420, which the device converts bit-identically
+        to the JAX package's numpy converter.  The choice is decode-side
+        only: a device fault raises at the fetch, with no retry.
+        """
+        kind, data = decode_video(path, framerate, width, height, ingest)
+        log.info("decoded %d frames, %d pairs from %s (%s ingest)",
+                 len(data[0]), len(data[1 if kind == "i420" else 2]), path, kind)
+        if kind == "i420":
+            return self.extractor.video_feature_async_i420(*data)
+        return self.extractor.video_feature_async(*data)
 
     def predict_file(self, path: str, framerate: float | None = None,
-                     width: int | None = None, height: int | None = None) -> float:
-        """Raw I420 ``.yuv`` file -> MOS: :meth:`enqueue_file` and the fetch."""
-        return self.predict_feature(self.enqueue_file(path, framerate, width, height))
+                     width: int | None = None, height: int | None = None,
+                     ingest: str = "bgr") -> float:
+        """File -> MOS: :meth:`enqueue_file` and the fetch."""
+        return self.predict_feature(self.enqueue_file(path, framerate, width, height, ingest))

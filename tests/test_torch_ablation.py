@@ -107,7 +107,7 @@ def jax_pair_features(extractors, small):
 def test_mode_matches_jax(extractors, request, mode, network, layer, inputs, dim):
     (jfx, jabl), (tfx, tabl) = extractors
     x = request.getfixturevalue(inputs)
-    got = _extract_one(tfx, tabl, mode, network, layer, x["fbuf"], x["nbuf"], x["h"], x["w"])
+    got = _extract_one(tfx, tabl, mode, network, layer, "i420", (x["fbuf"], x["nbuf"], x["h"], x["w"]))
     want = jax_extract_one(jfx, jabl, mode, network, layer, x["frames"], x["prev"], x["nxt"])
     assert_rows_close(got.numpy(), np.asarray(want), (2, dim))
 
@@ -117,7 +117,7 @@ def test_fragment_mode_matches_jax(extractors, small, jax_pair_features, mode, i
     """One JAX ``pair_features`` call serves both modes; the port runs only
     the network whose rows the mode stores."""
     _, (tfx, tabl) = extractors
-    got = _extract_one(tfx, tabl, mode, "resnet50", "pool", small["fbuf"], small["nbuf"], H, W)
+    got = _extract_one(tfx, tabl, mode, "resnet50", "pool", "i420", (small["fbuf"], small["nbuf"], H, W))
     assert_rows_close(got.numpy(), jax_pair_features[index], (2, dim))
 
 
@@ -140,7 +140,7 @@ def test_pair_features_chunks(extractors, small, monkeypatch):
     monkeypatch.setattr(FeatureExtractor, "max_pair_batch", lambda self, h, w: 1)
     for a, b in zip(tfx.pair_features(small["prev"], small["nxt"]), whole):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
-    chunked = _extract_one(tfx, tabl, "frame_diff", "vit", "pool", small["fbuf"], small["nbuf"], H, W)
+    chunked = _extract_one(tfx, tabl, "frame_diff", "vit", "pool", "i420", (small["fbuf"], small["nbuf"], H, W))
     np.testing.assert_allclose(chunked.numpy(),
                                tabl.pair_features("frame_diff", "vit", "pool", small["prev"], small["nxt"]),
                                rtol=1e-5, atol=1e-5)

@@ -6,8 +6,10 @@ and ``--root``; ``--device cpu --f32``; the port's extractor carries the
 torch oracles' weights (depth-2 ViT), the JAX one the same weights through
 relaxtpu's porters.  Checked: the ``full`` rows against the port's
 ``video_feature_i420`` (equal) and JAX's ``video_feature`` on the host
-converter's BGR frames (per-segment cosine >= 0.99999, mean relative error
-<= 1e-4, the pipeline test's bounds); an ablation mode's per-row matrices
+converter's BGR frames, with the port's native decoder forced off (per-segment
+cosine >= 0.99999, mean relative error <= 1e-4, the pipeline test's bounds;
+tests/test_torch_ingest.py holds extract to the JAX CLI with it loaded); an
+ablation mode's per-row matrices
 against JAX's ``frame_features`` (the same bounds, per row) and the
 assembled matrix; ``--save-mat`` through both packages' loaders; a JAX
 ``FeatureStore`` reading the port's store; resume; ``--profile-dir``; the
@@ -16,6 +18,7 @@ JSON line; and the refusals.
 
 import json
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +35,8 @@ from relaxtpu.parity import synthetic_correlated_video
 from relaxtpu_torch.cli import __main__ as cli
 from relaxtpu_torch.data.store import FeatureStore, load_mat_features
 from relaxtpu_torch.features.pipeline import FeatureExtractor
-from relaxtpu_torch.io.video import _yuv420_to_bgr_limited, decode_video_inputs_i420
+from relaxtpu_torch.io import native
+from relaxtpu_torch.io.video import DecoderUnavailable, _yuv420_to_bgr_limited, decode_video_inputs_i420
 from relaxtpu_torch.models.porters import resnet50_from_jax, vit_from_jax
 
 H, W = 120, 160
@@ -88,7 +92,15 @@ def port_cli(extractors, monkeypatch):
     monkeypatch.setattr(cli, "_build_extractor", lambda args: extractors[1])
 
 
-def test_full_mode_matches_port_and_jax(extractors, dataset, port_cli, tmp_path, capsys):
+@pytest.fixture
+def no_native(monkeypatch):
+    """The port's native decoder forced off, as on a host without libav: a
+    .yuv file then goes up as I420 from the numpy reader, whose frames the
+    JAX package's numpy converter gives."""
+    monkeypatch.setattr(native, "available", lambda: False)
+
+
+def test_full_mode_matches_port_and_jax(extractors, dataset, port_cli, no_native, tmp_path, capsys):
     jfx, tfx = extractors
     root, meta, clips = dataset
     line = run_extract(root, meta, tmp_path, "--save-mat", str(tmp_path / "f.mat"), capsys=capsys)
@@ -108,7 +120,7 @@ def test_full_mode_matches_port_and_jax(extractors, dataset, port_cli, tmp_path,
     np.testing.assert_array_equal(JaxStore(str(tmp_path)).assemble("live_qualcomm", 2), mat)
 
 
-def test_ablation_mode_rows_and_profile(extractors, dataset, port_cli, tmp_path, capsys):
+def test_ablation_mode_rows_and_profile(extractors, dataset, port_cli, no_native, tmp_path, capsys):
     """``--mode layer_stack``: per-frame ResNet stacks under the
     ``<dataset>_<mode>`` tag, their mean in the matrix; a trace in
     ``--profile-dir``."""
@@ -159,7 +171,7 @@ def test_default_backbones_on_cpu(dataset, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("case", ["n_data", "no_width", "empty_framerate", "container"])
-def test_extract_refuses(dataset, port_cli, tmp_path, capsys, case):
+def test_extract_refuses(dataset, port_cli, tmp_path, capsys, monkeypatch, case):
     root, meta, _ = dataset
     argv = ["extract", "--dataset", "live_qualcomm", "--metadata-csv", meta, "--root", root,
             "--output", str(tmp_path), "--device", "cpu"]
@@ -173,8 +185,10 @@ def test_extract_refuses(dataset, port_cli, tmp_path, capsys, case):
     elif case == "empty_framerate":
         argv[4] = write_meta(tmp_path / "m.csv", [dict(row, framerate="")])
         err, match = ValueError, "'framerate'"
-    else:
+    else:  # a container dataset on a host with neither decoder
         argv[2] = "konvid_1k"
-        err, match = NotImplementedError, "container decode"
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        err, match = DecoderUnavailable, "cv2 is not installed"
     with pytest.raises(err, match=match):
         cli.main(argv)

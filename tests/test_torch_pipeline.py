@@ -1,5 +1,6 @@
 """The port's whole slice against the JAX package: the 35,203-dim vector
-(BGR and I420 ingest) and the MOS of ``predict_file`` on a raw .yuv clip.
+(BGR and I420 ingest) and the MOS of ``predict_file`` on a raw .yuv clip
+(against the JAX package's ``predict_file`` on the same file).
 
 Small size: 2 frames and 2 pairs at 120x160, a depth-2 ViT, f32.  Weights
 come from the torch oracles, go into JAX through relaxtpu's porters and into
@@ -63,8 +64,10 @@ def clip(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_i420_vector(extractors, clip):
-    """JAX scores the port reader's packed buffers (not relaxtpu's own .yuv
-    decode, which goes through the native libav decoder on this host)."""
+    """JAX's I420 program on the port reader's packed buffers: the two I420
+    programs held together on the same bytes.  (A file-level result of the
+    JAX package decodes the .yuv file through BGR; ``predict_file`` is held
+    to that below.)"""
     fbuf, nbuf, h, w = decode_video_inputs_i420(clip, 4.0, W, H)
     assert (len(fbuf), len(nbuf)) == (2, 2)
     return np.asarray(extractors[0].video_feature_async_i420(fbuf, nbuf, h, w))
@@ -107,7 +110,10 @@ def head_files(tmp_path_factory):
     return str(d / "mlp.npz"), str(d / "imputer.pkl"), str(d / "scaler.pkl")
 
 
-def test_predict_file_mos_matches_jax(extractors, clip, jax_i420_vector, head_files):
+def test_predict_file_mos_matches_jax(extractors, clip, head_files):
+    """The port's ``predict_file`` on the .yuv file against the JAX
+    package's ``predict_file`` on the same file: both decode it as the JAX
+    package does (the native rawvideo decoder where it loads)."""
     from relaxtpu.model.scalers import FeatureScaler as JaxScaler
     from relaxtpu.predict import VideoQualityPredictor as JaxPredictor
     from relaxtpu.utils.checkpoint import load_snapshot
@@ -121,7 +127,7 @@ def test_predict_file_mos_matches_jax(extractors, clip, jax_i420_vector, head_fi
     want = JaxPredictor(
         extractors[0], {"params": snap.params, "batch_stats": snap.batch_stats},
         JaxScaler.load_reference_pkls(imputer, scaler),
-    ).predict_feature(jax_i420_vector)
+    ).predict_file(clip, framerate=4.0, width=W, height=H)
     pred = VideoQualityPredictor(
         extractors[1], mlp_from_jax(load_snapshot_variables(model)),
         FeatureScaler.load_reference_pkls(imputer, scaler),

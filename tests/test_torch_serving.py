@@ -25,6 +25,7 @@ from relaxtpu.ops.colorspace import bgr_to_yuv420, pack_i420
 from relaxtpu.parity import synthetic_correlated_video
 from relaxtpu_torch.cli import __main__ as cli
 from relaxtpu_torch.features.pipeline import FeatureExtractor, prev_frame_runs
+from relaxtpu_torch.io import native
 from relaxtpu_torch.model.mlp import Mlp
 from relaxtpu_torch.model.scalers import FeatureScaler
 from relaxtpu_torch.models.initutil import random_init_
@@ -47,6 +48,16 @@ def i420_video(seed: int, n_frames: int, n_pairs: int):
     """Packed I420 sampled frames (F, H*W*3/2) and successors (P, ...)."""
     frames, nxt = synthetic_correlated_video(np.random.default_rng(seed), n_frames, H, W)
     return pack_i420(*bgr_to_yuv420(frames)), pack_i420(*bgr_to_yuv420(nxt[:n_pairs]))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_native():
+    """The port's native decoder forced off, as on a host without libav: a
+    raw .yuv clip then takes the I420 route, the one the serve loop and
+    ``predict-batch`` (its batched program at ``--batch 2``) take there."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -195,9 +206,14 @@ def test_serve_loop_answers_in_order(predictor, clips, file_mos):
 @pytest.mark.parametrize("batch", [1, 2])
 def test_predict_batch_cli(predictor, clips, file_mos, tmp_path, capsys, monkeypatch, batch):
     """One JSON line and one CSV row a video, in input order (the directory
-    first, its files sorted, then the file named after it)."""
+    first, its files sorted, then the file named after it); ``--batch 2``
+    runs the first two through the batched I420 program."""
     monkeypatch.setattr(cli, "_build_extractor", lambda args: None)
     monkeypatch.setattr(cli, "_load_predictor", lambda args, extractor: predictor)
+    batched = []
+    inner = predictor.extractor.video_features_batch_i420
+    monkeypatch.setattr(predictor.extractor, "video_features_batch_i420",
+                        lambda *a: batched.append(len(a[0])) or inner(*a))
     out_csv = tmp_path / "scores.csv"
     vdir = tmp_path / "vids"
     vdir.mkdir()
@@ -211,6 +227,7 @@ def test_predict_batch_cli(predictor, clips, file_mos, tmp_path, capsys, monkeyp
             (clips[1], file_mos[1])]
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [(r["video"], r["predicted_mos"]) for r in lines] == [(p, pytest.approx(m, abs=1e-4)) for p, m in want]
+    assert batched == ([2] if batch == 2 else [])
     rows = out_csv.read_text().splitlines()
     assert rows[0] == "video,predicted_mos" and len(rows) == 4
     assert [r.split(",")[0] for r in rows[1:]] == [p for p, _ in want]
