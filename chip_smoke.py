@@ -128,7 +128,28 @@ Phases (any failed check raises, so the exit code is not 0):
    (f) ``warmup 540x960 x 16`` through the CLI, ``measure_link`` and the
        mode ``pick_serving_mode`` picks;
    (g) ``resolve_device("cuda:1")`` refused;
-10. print the ``kernels`` JSON line, the card line and the final status line.
+10. the multi-device layer (``relaxtpu_torch.parallel``) on the one card
+   (NCCL places one rank on one device, so several ranks share it through
+   gloo):
+   (a) world size 1 under NCCL (a ``file://`` store in ``build/``):
+       ``ShardedVideoEvaluator.run`` over phase 6's four 540p clips, rows
+       bit-identical to phase 6's bf16 streamed vectors, K1 = K2 = K3 = 12
+       a video, every kernel library call inside ``_native.launch``'s
+       device guard; ``DistributedMlpTrainStep`` at 35,203 x 256, batch
+       256, dropout 0, f32 with TF32 off, 20 steps against the one-process
+       step from the same init (loss and parameters within 1e-5 relative),
+       and both steps' ms by events, device ms and launches;
+   (b) ``extract --mode full --n-data 2`` (``cli.main`` in two ranks
+       started as torch.multiprocessing starts them, both on cuda:0)
+       over phase 8's four 1080p clips: the matrix equal to phase 8's
+       one-process matrix bit for bit, each rank's launches summing to the
+       one-process counts, warm wall ms a video against phase 8's;
+   (c) four ranks, a 2 x 2 mesh: 3 DP x TP steps at the real head shape
+       equal to (a)'s one-process steps within 1e-5 relative, the fc1 pad
+       row zero;
+   (d) ``resolve_device`` refuses the index past the device count, naming
+       the count;
+11. print the ``kernels`` JSON line, the card line and the final status line.
 
 Exits with 1 and prints no result when CUDA is not available.  Details go
 to ``build/chip_smoke/chip_smoke.json``.
@@ -139,6 +160,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import datetime
 import io
 import itertools
 import json
@@ -182,6 +204,10 @@ from relaxtpu_torch.ops.attention import mha, mha_plain
 from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve, box_blur_solve_plain
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
+from relaxtpu_torch.parallel.distributed import initialize
+from relaxtpu_torch.parallel.eval import ShardedVideoEvaluator
+from relaxtpu_torch.parallel.mesh import make_mesh, shard_batch
+from relaxtpu_torch.parallel.train_dp import DistributedMlpTrainStep
 from relaxtpu_torch.predict import VideoQualityPredictor
 from relaxtpu_torch.device import resolve_device
 from relaxtpu_torch.utils.checkpoint import load_snapshot_variables
@@ -742,7 +768,8 @@ def make_clip(name: str, n: int, h: int, w: int, seed: int) -> str:
     return path
 
 
-def run_serving() -> dict:
+def run_serving() -> tuple[dict, list]:
+    """Phase 6 -> its record and the four clips' bf16 streamed vectors."""
     rs, vs = seeded_states(vit_depth=12)
     mlp_state = random_init_(Mlp(), 2).state_dict()
     scaler = FeatureScaler(fill=np.zeros(1), scale=np.ones(1), offset=np.zeros(1))
@@ -779,6 +806,8 @@ def run_serving() -> dict:
         print(f"  ({tag}) (b) streaming through enqueue_file, 2 in flight")
         reset_counts()
         streamed = stream(pred, clips)
+        if tag == "bf16":
+            streamed_bf16 = streamed
         r["stream_launches"] = check_counts(f"{tag} streaming", {k: 12 * len(clips) for k in ("K1", "K2", "K3")})
         r["stream_vs_single"] = [check_cosines(f"{tag} streamed video {i} vs single", v, s, 0.99999)
                                  for i, (v, s) in enumerate(zip(streamed, single))]
@@ -850,7 +879,7 @@ def run_serving() -> dict:
         }
         del fx, pred
         torch.cuda.empty_cache()
-    return out
+    return out, streamed_bf16
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1407,7 +1436,8 @@ def vgg_check() -> dict:
     return r
 
 
-def run_extraction() -> dict:
+def run_extraction() -> tuple[dict, np.ndarray]:
+    """Phase 8 -> its record and (a)'s one-process `full` matrix."""
     out = {"seconds": {}}
     t_phase = time.perf_counter()
 
@@ -1450,7 +1480,7 @@ def run_extraction() -> dict:
         r["vs_single"] = [check_cosines(f"(a) stored row {i} vs video_feature_i420", row,
                                         fx.video_feature_i420(*decode_video_inputs_i420(c, 4.0, W_HI, H_HI)),
                                         COS_BOUND["bf16"]) for i, (row, c) in enumerate(zip(rows, clips))]
-        mat = np.load(os.path.join(out_a, "live_qualcomm_features.npy"))
+        mat = full_mat = np.load(os.path.join(out_a, "live_qualcomm_features.npy"))
         if not np.array_equal(mat, rows):
             raise AssertionError("(a) the .npy matrix differs from the stored rows")
         if not np.array_equal(load_mat_features(mat_path, "live_qualcomm"), mat.astype(float)):
@@ -1521,7 +1551,7 @@ def run_extraction() -> dict:
     shutil.rmtree(EXTRACT_DIR)
     lap("d")
     print(f"  phase 8 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
-    return out
+    return out, full_mat
 
 
 # ------------------------------------------------------------------ phase 9
@@ -1735,6 +1765,347 @@ def run_ingest() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 10
+MESH_DIR = os.path.join(WORK_DIR, "mesh")
+HEAD_BATCH, HEAD_STEPS_DP, TP_STEPS = 256, 20, 3
+RANK_TIMEOUT_S = 300
+DP_RTOL = 1e-5
+
+
+def _rank_entry(rank: int, fn, world: int, out_dir: str, args) -> None:
+    """One rank of a group on the one card: join through gloo (NCCL places
+    one rank on one device), run ``fn``, write its JSON result."""
+    initialize(f"file://{os.path.join(out_dir, 'store')}", world, rank, backend="gloo", device="cuda:0",
+               timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    result = fn(rank, *args)
+    torch.distributed.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args) -> list:
+    """``fn(rank, *args)`` in ``world`` processes started as
+    torch.multiprocessing starts them (spawn), all on cuda:0 through gloo,
+    joined with a timeout; a rank that fails fails the phase.  The kernel
+    library is built already: the ranks load it."""
+    out_dir = os.path.join(MESH_DIR, fn.__name__)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = torch.multiprocessing.start_processes(_rank_entry, args=(fn, world, out_dir, args), nprocs=world,
+                                                join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"{fn.__name__}: {world} ranks still running after {RANK_TIMEOUT_S} s")
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+class GuardedLaunches:
+    """While inside: every C call of the kernel library is counted, and
+    counted as guarded when it runs inside ``torch.cuda.device`` (the guard
+    ``_native.launch`` puts around it)."""
+
+    def __enter__(self):
+        self.launches = self.guarded = self.depth = 0
+        outer, self.saved = self, (torch.cuda.device, dict(_native._fns))
+
+        class Counted(torch.cuda.device):
+            def __enter__(self):
+                outer.depth += 1
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                outer.depth -= 1
+                return super().__exit__(*exc)
+
+        def counted(fn):
+            def call(*args):
+                outer.launches += 1
+                outer.guarded += outer.depth > 0
+                return fn(*args)
+            return call
+
+        torch.cuda.device = Counted
+        _native._fns.update({name: counted(fn) for name, fn in self.saved[1].items()})
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.device = self.saved[0]
+        _native._fns.update(self.saved[1])
+
+
+def step_timing(step, steps: int = HEAD_STEPS) -> dict:
+    """ms of ``step()``: CUDA events over ``steps`` calls, and the
+    profiler's device time and kernel launches a call."""
+    ms_events = cuda_ms(step, iters=steps, warmup=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return {"ms_events": ms_events,
+            "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps,
+            "launches_per_step": len(kernels) / steps}
+
+
+def mesh_one_rank(streamed540: list) -> tuple[dict, dict]:
+    """(a): world size 1 under NCCL.  -> the record, and the one-process
+    head's init, batch and state after ``TP_STEPS`` steps for (c)."""
+    out = {}
+    initialize(f"file://{os.path.join(MESH_DIR, 'nccl_store')}", 1, 0, backend="nccl", device="cuda:0",
+               timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    mesh = make_mesh(1, 1, "cuda:0")
+    print(f"  (a) NCCL {torch.cuda.nccl.version()}, world 1, mesh {mesh.shape}")
+    rs, vs = seeded_states(vit_depth=12)
+    fx = FeatureExtractor(rs, vs, dtype=torch.bfloat16, vit_depth=12, device="cuda")
+    clips = [os.path.join(WORK_DIR, f"serve{i}.yuv") for i in range(len(SERVE_FRAMES))]
+    reset_counts()
+    with GuardedLaunches() as guard:
+        rows = ShardedVideoEvaluator(fx, mesh).run(
+            clips, lambda c: ("i420", *decode_video_inputs_i420(c, 4.0, W, H)))
+    n = len(clips)
+    out["launches"] = check_counts("(a) ShardedVideoEvaluator.run, 4 clips", {k: 12 * n for k in ("K1", "K2", "K3")})
+    out["guarded"] = {"launches": guard.launches, "inside_device_guard": guard.guarded}
+    print(f"  (a) kernel library calls {guard.launches}, inside the device guard {guard.guarded}")
+    if guard.launches != sum(out["launches"].values()) or guard.guarded != guard.launches:
+        raise AssertionError(f"(a) launches outside the device guard: {out['guarded']}")
+    same = [bool(np.array_equal(r, v)) for r, v in zip(rows, streamed540, strict=True)]
+    out["rows_equal_phase6_streamed"] = same
+    print(f"  (a) rows bit-identical to phase 6's streamed vectors: {same}")
+    if not all(same):
+        raise AssertionError("(a) the sharded rows differ from phase 6's streamed vectors")
+    del fx, rs, vs
+    torch.cuda.empty_cache()
+
+    print(f"  (a) DistributedMlpTrainStep {FEAT_D} x 256, batch {HEAD_BATCH}, dropout 0, f32, "
+          f"{HEAD_STEPS_DP} steps, against the one-process step")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    # centred features: from U(0, 1) inputs the head diverges at lr 0.1, and two
+    # runs would be compared on chaos
+    x = torch.rand((HEAD_BATCH, FEAT_D), generator=gen, device="cuda") - 0.5
+    y = 1 + 4 * torch.rand(HEAD_BATCH, generator=gen, device="cuda")
+    init = flax_init_(Mlp(FEAT_D, 256, use_bn=False), torch.Generator().manual_seed(11)).state_dict()
+    dp = DistributedMlpTrainStep(mesh, FEAT_D, drop_rate=0.0)
+    dp.init(state=init)
+    trainer = train_mod.MlpTrainer(train_mod.TrainConfig(use_bn=False, drop_rate=0.0), FEAT_D, "cuda")
+    model = trainer.train_model(init)
+    opt = train_mod.make_optimizer(trainer.cfg, model.parameters())
+    losses = {"dp": [], "one": []}
+    for i in range(HEAD_STEPS_DP):
+        losses["dp"].append(float(dp.step(x, y)))
+        losses["one"].append(float(trainer.step(model, opt, x, y, None)))
+        if i + 1 == TP_STEPS:
+            ref = {"init": init, "x": x.cpu(), "y": y.cpu(), "losses": losses["one"][:],
+                   "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
+    state = dp.state()
+    out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses["dp"], losses["one"]))
+    out["param_rel"] = {k: rel_err(state[k], v)[1] for k, v in model.state_dict().items()}
+    out["losses"] = losses
+    print(f"  (a) loss after {HEAD_STEPS_DP} steps {losses['dp'][-1]!r} (one process {losses['one'][-1]!r}); "
+          f"largest relative difference: loss {out['loss_rel']:.3e}, parameters "
+          f"{max(out['param_rel'].values()):.3e} (bound {DP_RTOL:.0e})")
+    if not (out["loss_rel"] <= DP_RTOL and max(out["param_rel"].values()) <= DP_RTOL):
+        raise AssertionError(f"(a) the distributed step drifts from the one-process step: {out}")
+    out["step_timing"] = {
+        "distributed": step_timing(lambda: dp.step(x, y)),
+        "one_process": step_timing(lambda: trainer.step(model, opt, x, y, None)),
+    }
+    for k, t in out["step_timing"].items():
+        print(f"  (a) {k} step: {t['ms_events']:.4f} ms by events, {t['device_ms']:.4f} ms device time in "
+              f"{t['launches_per_step']:.1f} kernels")
+    del dp, trainer, model, opt, x, y
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out, ref
+
+
+def seeded_predictor(args, extractor) -> VideoQualityPredictor:
+    """``cli._load_predictor`` without the pkls (the card's host has no
+    joblib): phase 9's seeded head and identity scaler."""
+    scaler = FeatureScaler(fill=np.zeros(1), scale=np.ones(1), offset=np.zeros(1))
+    return VideoQualityPredictor(extractor, random_init_(Mlp(), 2).state_dict(), scaler)
+
+
+def run_predict_batch(argv: list) -> dict:
+    """``cli.main(["predict-batch", ...])`` with ``seeded_predictor`` -> the
+    rows ``predict_batch`` returned on this rank, its launches and stdout."""
+    rows, saved = [], (cli._load_predictor, cli.predict_batch)
+
+    def kept(*args, **kwargs):
+        out = saved[1](*args, **kwargs)
+        rows.extend([path, mos] for path, mos in out)
+        return out
+
+    cli._load_predictor, cli.predict_batch = seeded_predictor, kept
+    reset_counts()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict-batch", *argv])
+    finally:
+        cli._load_predictor, cli.predict_batch = saved
+    return {"rows": rows, "launches": counts(), "stdout": buf.getvalue()}
+
+
+def _mesh_cli_rank(rank: int, argv: list, outputs: list, predict_argv: list) -> dict:
+    """(b)'s rank: ``extract --n-data 2`` into ``outputs[0]`` (cold: the
+    launch counts) and ``outputs[1]`` (warm: the wall time), then
+    ``predict-batch --n-data 2``, the extractor built once."""
+    res = {}
+    with extraction_instruments():
+        for key, output in zip(("cold", "warm"), outputs):
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["extract", *argv, "--output", output])
+            torch.cuda.synchronize()
+            res[key] = {"s": time.perf_counter() - t0, "launches": counts(), "stdout": buf.getvalue()}
+        res["predict"] = run_predict_batch(predict_argv)
+    return res
+
+
+def _dp_tp_rank(rank: int, data_path: str, state_path: str) -> dict:
+    """(c)'s rank: ``TP_STEPS`` steps of the 2 x 2 DP x TP head."""
+    data = torch.load(data_path, weights_only=False)
+    mesh = make_mesh(2, 2, "cuda:0")
+    step = DistributedMlpTrainStep(mesh, FEAT_D, drop_rate=0.0)
+    step.init(state=data["init"])
+    xs, ys, _ = shard_batch(mesh, data["x"], data["y"])
+    losses = [float(step.step(xs, ys)) for _ in range(TP_STEPS)]
+    state = step.state(keep_pad=True)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in state.items()}, state_path)
+    return {"mesh": [mesh.rank, mesh.data_index, mesh.model_index], "cols": list(step.cols), "loss": losses,
+            "pad_zero": not state["fc1.weight"][:, FEAT_D:].any().item()}
+
+
+def run_mesh(streamed540: list, full1080: np.ndarray, one_process: dict) -> dict:
+    """Phase 10: the multi-device layer on the one card.  ``streamed540``:
+    phase 6's bf16 streamed vectors; ``full1080`` and ``one_process``:
+    phase 8 (a)'s matrix and record (launches, warm ms a video)."""
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+
+    def lap(step: str) -> None:
+        nonlocal t_phase
+        out["seconds"][step] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+    print("  (a) world size 1 under NCCL: ShardedVideoEvaluator.run on phase 6's four 540p clips")
+    out["a"], ref = mesh_one_rank(streamed540)
+    lap("a")
+
+    print(f"  (b) extract --mode full --n-data 2: two ranks on cuda:0 through gloo, phase 8's {N_EXTRACT} "
+          f"{H_HI}x{W_HI} clips")
+    os.makedirs(os.path.join(MESH_DIR, "LIVE-Qualcomm"))
+    vids = [f"clip{i}" for i in range(N_EXTRACT)]
+    for i, v in enumerate(vids):
+        make_clip(os.path.join("mesh", "LIVE-Qualcomm", f"{v}.yuv"), FRAMES_HI, H_HI, W_HI, seed=40 + i)
+    meta = os.path.join(MESH_DIR, "meta.csv")
+    with open(meta, "w") as f:
+        f.write("vid,mos,framerate,width,height\n")
+        f.writelines(f"{v},{50 + i},4,{W_HI},{H_HI}\n" for i, v in enumerate(vids))
+    argv = ["--dataset", "live_qualcomm", "--root", MESH_DIR, "--metadata-csv", meta, "--decode-workers", "4",
+            "--n-data", "2", "--device", "cuda:0"]
+    outputs = [os.path.join(MESH_DIR, "out_cold"), os.path.join(MESH_DIR, "out_warm")]
+    # predict-batch on phase 6's four 540p clips: the one-process run at
+    # --batch 2 runs the batched program on clips 0-1 and 2-3; at --batch 4
+    # over 2 ranks each rank runs it on the same two, so rows are bit-equal
+    clips = [os.path.join(WORK_DIR, f"serve{i}.yuv") for i in range(len(SERVE_FRAMES))]
+    predict_argv = ["--videos", *clips, "--width", str(W), "--height", str(H), "--framerate", "4",
+                    "--model", "seeded", "--imputer", "none", "--scaler", "none", "--device", "cuda:0"]
+    with extraction_instruments():
+        one_predict = run_predict_batch([*predict_argv, "--batch", "2"])
+    torch.cuda.empty_cache()
+    ranks = run_ranks(_mesh_cli_rank, 2, argv, outputs, [*predict_argv, "--batch", "4", "--n-data", "2"])
+    line = json.loads(ranks[0]["cold"]["stdout"].strip().splitlines()[-1])
+    want_line = {"dataset": "live_qualcomm", "mode": "full", "shape": [N_EXTRACT, TOTAL_FEATURE_DIM],
+                 "mesh": {"data": 2, "model": 1}}
+    if line != want_line or ranks[1]["cold"]["stdout"]:
+        raise AssertionError(f"(b) rank 0 printed {line}, rank 1 {ranks[1]['cold']['stdout']!r}")
+    mat = np.load(os.path.join(outputs[0], "live_qualcomm_features.npy"))
+    equal = bool(np.array_equal(mat, full1080))
+    per_rank = [r["cold"]["launches"] for r in ranks]
+    total = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+    one, one_process_ms_per_video = one_process["launches"], one_process["warm_ms_per_video"]
+    warm_s = max(r["warm"]["s"] for r in ranks)
+    out["b"] = {"launches_per_rank": per_rank, "launches_total": total, "matrix_equals_one_process": equal,
+                "warm_s": [r["warm"]["s"] for r in ranks], "cold_s": [r["cold"]["s"] for r in ranks],
+                "warm_ms_per_video": warm_s * 1e3 / N_EXTRACT,
+                "one_process_warm_ms_per_video": one_process_ms_per_video}
+    print(f"  (b) launches per rank {per_rank}, summed {total} (one process {one}); matrix equal to phase 8's "
+          f"one-process run bit for bit: {equal}")
+    print(f"  (b) warm run: {out['b']['warm_ms_per_video']:.2f} ms a video over 2 ranks sharing the card "
+          f"(one process, phase 8: {one_process_ms_per_video:.2f}); cold run {out['b']['cold_s']} s per rank")
+    if total != one or not equal:
+        raise AssertionError(f"(b) the sharded extract differs from the one-process run: {out['b']}")
+    per_rank = [r["predict"]["launches"] for r in ranks]
+    total = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+    printed = [json.loads(line) for line in ranks[0]["predict"]["stdout"].splitlines()]
+    same = [r["predict"]["rows"] == one_predict["rows"] for r in ranks]
+    out["b"]["predict_batch"] = {"rows": one_predict["rows"], "rows_equal_one_process": same,
+                                 "launches_per_rank": per_rank, "launches_total": total,
+                                 "one_process_launches": one_predict["launches"]}
+    print(f"  (b) predict-batch --batch 4 --n-data 2 on phase 6's {len(clips)} 540p clips: rows of each rank "
+          f"equal to the one-process run's at --batch 2 bit for bit: {same}; launches per rank {per_rank}, "
+          f"summed {total} (one process {one_predict['launches']}); MOS {[m for _, m in one_predict['rows']]}")
+    if not (all(same) and total == one_predict["launches"] and ranks[1]["predict"]["stdout"] == ""
+            and [(x["video"], x["predicted_mos"]) for x in printed] == [tuple(r) for r in one_predict["rows"]]
+            and all(math.isfinite(m) for _, m in one_predict["rows"])):
+        raise AssertionError(f"(b) the sharded predict-batch differs from the one-process run: "
+                             f"{out['b']['predict_batch']}, rank 1 printed {ranks[1]['predict']['stdout']!r}")
+    lap("b")
+
+    print(f"  (c) 2 x 2 DP x TP on four ranks (cuda:0, gloo): {TP_STEPS} steps at {FEAT_D} x 256, "
+          f"batch {HEAD_BATCH}")
+    data_path, state_path = os.path.join(MESH_DIR, "head.pt"), os.path.join(MESH_DIR, "dp_tp_state.pt")
+    torch.save({k: ref[k] for k in ("init", "x", "y")}, data_path)
+    ranks = run_ranks(_dp_tp_rank, 4, data_path, state_path)
+    state = torch.load(state_path, weights_only=False)
+    w1 = state.pop("fc1.weight")
+    state["fc1.weight"] = w1[:, :FEAT_D]
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["loss"], ref["losses"], strict=True))
+    param_rel = {k: rel_err(state[k], v)[1] for k, v in ref["state"].items()}
+    out["c"] = {"ranks": ranks, "loss_rel": loss_rel, "param_rel": param_rel,
+                "pad_rows": int(w1.shape[1] - FEAT_D), "pad_zero": bool(not w1[:, FEAT_D:].any())}
+    print(f"  (c) ranks (rank, data, model): {[r['mesh'] for r in ranks]}; losses {ranks[0]['loss']} "
+          f"(one process {ref['losses']}); largest relative difference: loss {loss_rel:.3e}, parameters "
+          f"{max(param_rel.values()):.3e} (bound {DP_RTOL:.0e}); fc1 pad rows {out['c']['pad_rows']}, zero: "
+          f"{out['c']['pad_zero']}")
+    if not (loss_rel <= DP_RTOL and max(param_rel.values()) <= DP_RTOL and out["c"]["pad_zero"]
+            and out["c"]["pad_rows"] == 1 and all(r["pad_zero"] for r in ranks)):
+        raise AssertionError(f"(c) the DP x TP step differs from the one-process step: {out['c']}")
+    lap("c")
+
+    print("  (d) a CUDA index past the device count")
+    try:
+        resolve_device(f"cuda:{torch.cuda.device_count()}")
+    except ValueError as e:
+        out["d"] = str(e)
+        print(f"  (d) resolve_device('cuda:{torch.cuda.device_count()}') raised: {e}")
+        if f"{torch.cuda.device_count()} CUDA device" not in str(e):
+            raise AssertionError(f"(d) the refusal does not name the device count: {e}")
+    else:
+        raise AssertionError("(d) an index past the device count was accepted")
+    shutil.rmtree(MESH_DIR)
+    lap("d")
+    print(f"  phase 10 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    return out
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1762,16 +2133,19 @@ def main() -> int:
     main_res, vec540 = run_main_path()
 
     print("[6] serving paths: batched, streamed, 1080p chunked, serve loop")
-    serving = run_serving()
+    serving, streamed540 = run_serving()
 
     print("[7] training the MLP head at full width: train, CUDA vs CPU, train-lsvq, finetune")
     training = run_training(vec540)
 
     print("[8] extraction: extract in every mode at 1080p, CUDA vs CPU, VGG-16, --profile-dir")
-    extraction = run_extraction()
+    extraction, full1080 = run_extraction()
 
     print("[9] ingest: BGR against I420, predict_arrays, predict_batch grouping, no pairs, decoder, warmup")
     ingest = run_ingest()
+
+    print("[10] multi-device: world size 1 under NCCL, 2 and 4 ranks sharing the card through gloo")
+    mesh = run_mesh(streamed540, full1080, extraction["a"])
 
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
@@ -1801,7 +2175,7 @@ def main() -> int:
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
                    "main_path": main_res, "serving": serving, "training": training,
-                   "extraction": extraction, "ingest": ingest}, fh, indent=1)
+                   "extraction": extraction, "ingest": ingest, "mesh": mesh}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -117,10 +117,13 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call a C entry point on the current stream of ``device`` (the
-    device of the tensors it reads); raise on a CUDA error."""
+    """Call a C entry point with ``device`` (the device of the tensors it
+    reads) as the current device, on its current stream; raise on a CUDA
+    error.  A ``<<<>>>`` launch goes to the current device, and the
+    library's per-device set-up reads it (``csrc/per_device.cuh``)."""
     fn = _fns.get(name) or getattr(lib(), name)
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -26,11 +26,22 @@ report of greyscale videos, read through cv2).
 
 Training: ``train`` (repeated holdout), ``train-lsvq`` (LSVQ fixed split),
 ``finetune`` (cross-dataset, or ``--zero-shot``) and ``train-cross``, with
-the JAX CLI's flags (less ``--config``) and ``--device``; each prints one
-JSON result line, as the JAX CLI does.  Example::
+the JAX CLI's flags and ``--device``; each prints one JSON result line, as
+the JAX CLI does.  Example::
 
     python -m relaxtpu_torch.cli train --metadata-csv meta.csv \
         --features feats.npy --output mlp.npz --device cpu
+
+``--config run.json`` (before the subcommand) takes the defaults of every
+subcommand from a ``RunConfig`` file (``relaxtpu_torch.config``, the JAX
+package's format); explicit flags still win.
+
+Several devices: ``extract`` and ``predict-batch`` take ``--n-data`` and
+``--n-model`` and then run one process per rank of the mesh, started with
+``torchrun`` (NCCL on CUDA, gloo with ``--device cpu``)::
+
+    torchrun --nproc-per-node 2 -m relaxtpu_torch.cli extract --n-data 2 \
+        --dataset konvid_1k --metadata-csv meta.csv --root data
 """
 
 from __future__ import annotations
@@ -158,7 +169,8 @@ def serve_loop(predictor, requests, out, in_flight: int = 2, defaults: dict | No
         emit(*pending.popleft())
 
 
-def predict_batch(predictor, paths, decode, batch=1, decode_workers: int = 4) -> list[tuple[str, float]]:
+def predict_batch(predictor, paths, decode, batch=1, decode_workers: int = 4,
+                  evaluator=None) -> list[tuple[str, float]]:
     """MOS of every video in ``paths`` -> [(path, mos)] in input order.
 
     ``decode(path)`` gives ``io.video.decode_video``'s ``(kind, data)``;
@@ -170,6 +182,13 @@ def predict_batch(predictor, paths, decode, batch=1, decode_workers: int = 4) ->
     through the BGR program (``predict_arrays``' program), on its own.  Two
     programs stay enqueued while later videos decode; a group left short of
     N runs at the end.
+
+    With ``evaluator`` (a ``parallel.eval.ShardedVideoEvaluator``, which
+    every rank of its mesh runs with the same videos) each group's runs go
+    through its video-sharded batched program, N floored at the data axis
+    (fewer videos would leave ranks computing padding).  A BGR video still
+    runs on each rank's own device through the BGR program, as the JAX
+    CLI runs it on one device.
     """
     extractor = predictor.extractor
     mos = [None] * len(paths)
@@ -183,7 +202,9 @@ def predict_batch(predictor, paths, decode, batch=1, decode_workers: int = 4) ->
 
     def run_group(key) -> None:
         items, (h, w) = groups.pop(key), key
-        if len(items) == 1:
+        if evaluator is not None:
+            vecs = evaluator.videos_batch_feature_i420([it[1] for it in items], [it[2] for it in items], h, w)
+        elif len(items) == 1:
             vecs = extractor.video_feature_async_i420(items[0][1], items[0][2], h, w)[None]
         else:
             vecs = extractor.video_features_batch_i420([it[1] for it in items], [it[2] for it in items], h, w)
@@ -204,7 +225,7 @@ def predict_batch(predictor, paths, decode, batch=1, decode_workers: int = 4) ->
                                                   measure_link(n_mb=16, reps=1, device=extractor.device))
                 log.info("serving mode: %s", reason)
             groups.setdefault((h, w), []).append((i, fbuf, nbuf))
-            if len(groups[(h, w)]) >= batch:
+            if len(groups[(h, w)]) >= (batch if evaluator is None else max(batch, evaluator.mesh.shape["data"])):
                 run_group((h, w))
         for key in list(groups):
             run_group(key)
@@ -237,15 +258,43 @@ def cmd_predict(args):
     print(json.dumps({"video": args.video, "predicted_mos": mos}))
 
 
+def _mesh_for(args):
+    """The mesh of ``--n-data``/``--n-model``, None for one device.  Above
+    one rank the process group comes from torchrun's environment (or is
+    already initialised); without either the command raises, rather than
+    run on one device."""
+    if (args.n_data or 1) * args.n_model <= 1:
+        return None
+    from relaxtpu_torch.parallel.distributed import initialize, launched
+    from relaxtpu_torch.parallel.mesh import make_mesh
+
+    if not torch.distributed.is_initialized() and not launched():
+        raise RuntimeError(f"--n-data {args.n_data} --n-model {args.n_model}: a mesh runs one process a "
+                           "rank; start it with torchrun --nproc-per-node N -m relaxtpu_torch.cli ...")
+    mesh = make_mesh(args.n_data, args.n_model, initialize(device=args.device))
+    log.info("mesh %s: rank %d at data %d, model %d on %s", mesh.shape, mesh.rank, mesh.data_index,
+             mesh.model_index, mesh.device)
+    return mesh
+
+
 def cmd_predict_batch(args):
     paths = _video_paths(args.videos)
+    mesh = _mesh_for(args)
     predictor = _load_predictor(args, _build_extractor(args))
     flags = dict(framerate=args.framerate, width=args.width, height=args.height)
 
     def decode(path):
         return decode_video(path, **_geometry(path, None, None, None, flags), ingest=args.ingest)
 
-    rows = predict_batch(predictor, paths, decode, batch=args.batch, decode_workers=args.decode_workers)
+    evaluator = None
+    if mesh is not None:
+        from relaxtpu_torch.parallel.eval import ShardedVideoEvaluator
+
+        evaluator = ShardedVideoEvaluator(predictor.extractor, mesh, decode_workers=args.decode_workers)
+    rows = predict_batch(predictor, paths, decode, batch=args.batch, decode_workers=args.decode_workers,
+                         evaluator=evaluator)
+    if mesh is not None and mesh.rank != 0:
+        return
     for path, mos in rows:
         print(json.dumps({"video": path, "predicted_mos": mos}))
     if args.output_csv:
@@ -355,36 +404,67 @@ def _row_geometry(meta: dict, i: int) -> tuple:
 
 
 def cmd_extract(args):
-    from relaxtpu_torch.data.store import FeatureStore
     from relaxtpu_torch.device import resolve_device
-    from relaxtpu_torch.features.ablation import AblationExtractor
-    from relaxtpu_torch.io.datasets import data_root, get_dataset, load_metadata, read_metadata_csv
-    from relaxtpu_torch.utils.profiling import trace_to
 
     resolve_device(args.device)
-    if (args.n_data or 1) * args.n_model > 1:
-        raise NotImplementedError("--n-data/--n-model above 1: multi-device extraction is not "
-                                  "ported yet (the multi-device item of ROADMAP.md's Queue 1)")
+    mesh = _mesh_for(args)
+    if mesh is None:
+        _extract(args)
+    elif args.mode == "full":
+        _extract_sharded(args, mesh)
+    else:  # as the JAX CLI, the mode runs on one device: rank 0's
+        logging.warning("--n-data/--n-model: mesh extraction supports --mode full only; rank 0 runs "
+                        "mode=%s on one device and the other ranks end at once", args.mode)
+        # no collective: a wait of the other ranks would time out with the
+        # group (distributed.TIMEOUT) while rank 0 runs a whole dataset
+        if mesh.rank == 0:
+            _extract(args)
+
+
+def _extract_setup(args):
+    """The dataset, its metadata, the store and its tag, and ``decode(i)``
+    of the dataset's video i (``io.video.decode_video``'s result)."""
+    from relaxtpu_torch.data.store import FeatureStore
+    from relaxtpu_torch.io.datasets import data_root, get_dataset, load_metadata, read_metadata_csv
+
     spec = get_dataset(args.dataset)
     root = data_root(args.root)
     meta = read_metadata_csv(args.metadata_csv) if args.metadata_csv else load_metadata(spec, args.metadata_dir)
-    n = len(meta["vid"])
-    store = FeatureStore(args.output)
-    extractor = _build_extractor(args)
-    ablation = AblationExtractor(extractor)
     # the tag ignores --network and --layer, as relaxtpu's store layout does
     tag = args.dataset if args.mode == "full" else f"{args.dataset}_{args.mode}"
-    todo = [i for i in range(n) if not store.has(tag, i)]
-    # full: up to --dispatch-ahead vectors stay enqueued on the device while
-    # later videos decode; the ablation modes store each video at once
-    ahead = args.dispatch_ahead if args.mode == "full" else 0
     # the ablation modes decode BGR, as the JAX CLI's do
     ingest = args.ingest if args.mode == "full" else "bgr"
-    pending = collections.deque()  # (index, features on the device)
 
     def decode(i: int):
         path = spec.video_path(root, str(meta["vid"][i]))
         return decode_video(path, *_row_geometry(meta, i), ingest=ingest)
+
+    return len(meta["vid"]), FeatureStore(args.output), tag, decode
+
+
+def _extract_finish(args, store, tag: str, n: int, **extra) -> None:
+    """The dataset's matrix (``<output>/<tag>_features.npy``, ``--save-mat``)
+    and the JSON line."""
+    mat = store.assemble(tag, n)
+    np.save(os.path.join(args.output, f"{tag}_features.npy"), mat)
+    if args.save_mat:
+        store.save_mat(tag, n, args.save_mat, key=args.dataset)
+    print(json.dumps({"dataset": args.dataset, "mode": args.mode, "shape": list(mat.shape), **extra}))
+
+
+def _extract(args) -> None:
+    """Extraction on one device."""
+    from relaxtpu_torch.features.ablation import AblationExtractor
+    from relaxtpu_torch.utils.profiling import trace_to
+
+    n, store, tag, decode = _extract_setup(args)
+    extractor = _build_extractor(args)
+    ablation = AblationExtractor(extractor)
+    todo = [i for i in range(n) if not store.has(tag, i)]
+    # full: up to --dispatch-ahead vectors stay enqueued on the device while
+    # later videos decode; the ablation modes store each video at once
+    ahead = args.dispatch_ahead if args.mode == "full" else 0
+    pending = collections.deque()  # (index, features on the device)
 
     def drain(limit: int) -> None:
         while len(pending) > limit:
@@ -407,11 +487,37 @@ def cmd_extract(args):
         while decoding:
             extract(*decoding.popleft())
         drain(0)
-    mat = store.assemble(tag, n)
-    np.save(os.path.join(args.output, f"{tag}_features.npy"), mat)
-    if args.save_mat:
-        store.save_mat(tag, n, args.save_mat, key=args.dataset)
-    print(json.dumps({"dataset": args.dataset, "mode": args.mode, "shape": list(mat.shape)}))
+    _extract_finish(args, store, tag, n)
+
+
+def _extract_sharded(args, mesh) -> None:
+    """``--mode full`` over a mesh of ranks: after a barrier every rank reads
+    the store (the same videos to do on every rank), decodes and computes
+    its data index's round-robin share through
+    ``ShardedVideoEvaluator.run``, and gets every row; rank 0 alone writes
+    the store, the matrix and the JSON line, and the ranks end together."""
+    from relaxtpu_torch.parallel.eval import ShardedVideoEvaluator
+    from relaxtpu_torch.utils.profiling import trace_to
+
+    n, store, tag, decode = _extract_setup(args)
+    extractor = _build_extractor(args)
+
+    def decode_for_run(i: int):  # the evaluator's forms: BGR arrays or ("i420", ...)
+        kind, data = decode(i)
+        return ("i420", *data) if kind == "i420" else data
+
+    torch.distributed.barrier()
+    todo = [i for i in range(n) if not store.has(tag, i)]
+    evaluator = ShardedVideoEvaluator(extractor, mesh, decode_workers=args.decode_workers)
+    profile = trace_to(args.profile_dir, extractor.device) if args.profile_dir else contextlib.nullcontext()
+    with profile:
+        vecs = evaluator.run(todo, decode_for_run,
+                             on_result=lambda k, _: log.info("extracted video %d of %d", todo[k] + 1, n))
+    if mesh.rank == 0:
+        for i, vec in zip(todo, vecs):
+            store.put(tag, i, vec)
+        _extract_finish(args, store, tag, n, mesh=mesh.shape)
+    torch.distributed.barrier()
 
 
 def cmd_metadata(args):
@@ -612,6 +718,14 @@ def _add_backbone_flags(sp) -> None:
     _add_device_flag(sp)
 
 
+def _add_mesh_flags(sp, what: str) -> None:
+    sp.add_argument("--n-data", type=int, default=None,
+                    help=f"ranks on the mesh's data axis (default: the world over --n-model); above one "
+                    f"rank, one process a rank started with torchrun: {what}")
+    sp.add_argument("--n-model", type=int, default=1,
+                    help="ranks on the mesh's model axis, which compute the same videos")
+
+
 def _add_device_flag(sp) -> None:
     sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
@@ -630,8 +744,11 @@ def _add_ingest_flag(sp) -> None:
                     "gives the JAX package's frames in every mode")
 
 
-def build_parser() -> argparse.ArgumentParser:
+def build_parser() -> tuple[argparse.ArgumentParser, dict]:
+    """(parser, {subcommand: subparser})."""
     p = argparse.ArgumentParser(prog="relaxtpu_torch")
+    p.add_argument("--config", default=None,
+                   help="RunConfig JSON (relaxtpu_torch.config): defaults for every subcommand's flags")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("predict", help="one video -> MOS")
@@ -658,6 +775,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "'auto' probes the host-to-device link and picks one of the two")
     sp.add_argument("--decode-workers", type=int, default=4, help="host decode threads")
     sp.add_argument("--output-csv", default=None, help="also write a video,predicted_mos CSV")
+    _add_mesh_flags(sp, "each resolution's runs of videos (at least --n-data) split over the ranks; "
+                    "rank 0 prints the rows and writes the CSV")
     sp.set_defaults(fn=cmd_predict_batch)
 
     sp = sub.add_parser(
@@ -727,8 +846,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--mode full on containers: auto (default) uploads the decoder's I420 "
                     "where it gives it (the metadata's geometry must be the stream's), else BGR; "
                     "the ablation modes decode BGR")
-    sp.add_argument("--n-data", type=int, default=None, help="above 1: not ported (multi-device)")
-    sp.add_argument("--n-model", type=int, default=1, help="above 1: not ported (multi-device)")
+    _add_mesh_flags(sp, "--mode full: each rank decodes and computes its round-robin share of the "
+                    "videos, and rank 0 writes the store; another mode runs on rank 0 alone")
     _add_backbone_flags(sp)
     sp.set_defaults(fn=cmd_extract)
 
@@ -816,12 +935,65 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--no-bn", action="store_true")
     _add_device_flag(sp)
     sp.set_defaults(fn=cmd_train_cross)
-    return p
+    return p, dict(sub.choices)
+
+
+# Subcommands --config does not feed: they read no RunConfig field
+# (``metadata`` scans container conventions, not a RunConfig dataset; the
+# JAX CLI's ``report`` has no counterpart here yet).
+CONFIG_EXCLUDED = {"metadata", "report"}
+
+
+def _apply_config(argv, subparsers: dict) -> None:
+    """Pre-scan ``argv`` for ``--config``; its RunConfig values become the
+    defaults of every subcommand, as the JAX CLI's ``_apply_config`` sets
+    them (explicit flags still win).  ``runtime.compilation_cache`` has no
+    effect: the port's build cache is ``_native``'s."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--config", default=None)
+    known, _ = pre.parse_known_args(argv)
+    if not known.config:
+        return
+    from relaxtpu_torch.config import RunConfig
+
+    cfg = RunConfig.load(known.config)
+    ex, tr, rt = cfg.extract, cfg.train, cfg.runtime
+
+    def set_defaults(name: str, **values) -> None:
+        sp = subparsers[name]
+        sp.set_defaults(**values)
+        for a in sp._actions:  # a value from the file satisfies a required flag
+            if a.required and values.get(a.dest) is not None:
+                a.required = False
+
+    backbone = dict(resnet_weights=ex.resnet_weights, vit_weights=ex.vit_weights,
+                    bf16=ex.backbone_dtype == "bfloat16")
+    mesh = dict(n_data=rt.n_data, n_model=rt.n_model)
+    set_defaults("extract", dataset=ex.dataset, root=ex.data_root, metadata_dir=ex.metadata_dir,
+                 output=ex.output_dir, decode_workers=rt.decode_workers, dispatch_ahead=rt.dispatch_ahead,
+                 profile_dir=rt.profile_dir, ingest=ex.ingest, **mesh, **backbone)
+    set_defaults("predict", video_type=ex.dataset, ingest=ex.ingest, **backbone)
+    set_defaults("predict-batch", video_type=ex.dataset, ingest=ex.ingest, decode_workers=rt.decode_workers,
+                 **mesh, **backbone)
+    set_defaults("serve", video_type=ex.dataset, ingest=ex.ingest, **backbone)
+    set_defaults("train", dataset=ex.dataset, metadata_dir=ex.metadata_dir, n_repeats=tr.n_repeats,
+                 n_splits=tr.n_splits, batch_size=tr.batch_size, epochs=tr.epochs, lr=tr.initial_lr,
+                 weight_decay=tr.weight_decay, select_criteria=tr.select_criteria, no_bn=not tr.use_bn,
+                 no_kfold=not tr.kfold)
+    set_defaults("train-lsvq", epochs=tr.epochs, batch_size=tr.batch_size, lr=tr.initial_lr,
+                 weight_decay=tr.weight_decay, select_criteria=tr.select_criteria)
+    set_defaults("finetune", dataset=ex.dataset, n_repeats=tr.n_repeats, epochs=tr.epochs, no_bn=not tr.use_bn)
+    set_defaults("greyscale", dataset=ex.dataset, root=ex.data_root, metadata_dir=ex.metadata_dir)
+    set_defaults("warmup", ingest=ex.ingest, **backbone)  # the port pads nothing: no frame bucket
+    set_defaults("train-cross", epochs=tr.epochs, no_bn=not tr.use_bn)
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
-    args = build_parser().parse_args(argv)
+    argv = sys.argv[1:] if argv is None else argv
+    parser, subparsers = build_parser()
+    _apply_config(argv, subparsers)
+    args = parser.parse_args(argv)
     args.fn(args)
 
 

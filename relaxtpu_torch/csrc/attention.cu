@@ -43,6 +43,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -419,19 +421,25 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------- launch
-// The dynamic shared-memory opt-in is set once per kernel function (a
-// static in each launcher instantiation), to the most it can ask for.
+// The dynamic shared-memory opt-in is set once per kernel function and
+// device (a PerDevice static in each launcher instantiation), to the most it
+// can ask for.
 template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t most) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+int opt_in(PerDevice& done, Kernel kernel, size_t most) {
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  return once_per_device(done, dev, [kernel, most] {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+  });
 }
 
 template <int D, int KT>
 int launch_bf16_kt(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
                    long long sb, long long sn, float scale, cudaStream_t stream) {
   constexpr size_t smem = bf16_smem<D, KT>();
-  static const cudaError_t attr = opt_in(mha_bf16_kernel<D, KT>, smem);
-  if (attr != cudaSuccess) return (int)attr;
+  static PerDevice opted;
+  const int attr = opt_in(opted, mha_bf16_kernel<D, KT>, smem);
+  if (attr != cudaSuccess) return attr;
   dim3 grid((unsigned)(((N + 15) / 16 + QB - 1) / QB), (unsigned)H, (unsigned)B);
   mha_bf16_kernel<D, KT><<<grid, 128, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, H, sb, sn, scale);
@@ -453,8 +461,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
                long long sb, long long sn, float scale, cudaStream_t stream) {
-  static const cudaError_t err = opt_in(mha_f32_kernel<D>, f32_smem<D>(MAX_N));
-  if (err != cudaSuccess) return (int)err;
+  static PerDevice opted;
+  const int err = opt_in(opted, mha_f32_kernel<D>, f32_smem<D>(MAX_N));
+  if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((N + QTF - 1) / QTF), (unsigned)H, (unsigned)B);
   mha_f32_kernel<D><<<grid, NTF, f32_smem<D>(N), stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, sb, sn, scale);

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int TH = 8;              // output rows a step
@@ -213,18 +215,24 @@ template <int R, int TW>
 int launch_tw(const float* m, float* flow, int P, int H, int W, float inv_area, bool vec,
               cudaStream_t stream) {
   constexpr size_t smem = Strip<TW>::smem;
-  // the opt-in above 48 KB, once per kernel function
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      box_blur_solve_kernel<R, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  static int slots = 0;  // resident blocks the card holds
-  if (slots == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  // the opt-in above 48 KB and the resident blocks the card holds, once per
+  // kernel function and device
+  static PerDevice opted, resident;
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  const int attr = once_per_device(opted, dev, [] {
+    return (int)cudaFuncSetAttribute(box_blur_solve_kernel<R, TW>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)Strip<TW>::smem);
+  });
+  if (attr != cudaSuccess) return attr;
+  const int slots = once_per_device(resident, dev, [dev] {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, box_blur_solve_kernel<R, TW>, NT, smem);
-    slots = sms * max(per_sm, 1);
-  }
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, box_blur_solve_kernel<R, TW>, NT,
+                                                  Strip<TW>::smem);
+    return sms * max(per_sm, 1);
+  });
   // The run of steps a block walks: a block's time goes with the rows it
   // loads (run TH + 2R), and the launch takes whole waves of ``slots``
   // blocks, so take the run with the fewest rows across its waves.

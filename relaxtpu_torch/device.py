@@ -12,19 +12,17 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means CUDA.  A CUDA device without CUDA raises, and so does
-    a CUDA index other than 0: the kernel library keeps per-process state
-    for one device, and the multi-device paths are not ported yet."""
+    """``None`` means CUDA (the current device).  A CUDA device without
+    CUDA raises, and so does a CUDA index at or past the device count."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and dev.index not in (None, 0):
-        raise ValueError(
-            f"{dev}: the port runs on CUDA device 0 only; other devices wait for the "
-            "multi-device item of ROADMAP.md's Queue 1"
-        )
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is not None:
+        count = torch.cuda.device_count()
+        if dev.index >= count:
+            raise ValueError(f"{dev}: this host has {count} CUDA device{'s' * (count != 1)}")
     return dev
 
 

@@ -9,6 +9,7 @@ Bounds: the CSV files and the JSON lines are byte-equal to the JAX CLI's
 (the port writes with the ``csv`` module what pandas writes for JAX).
 """
 
+import contextlib
 import io
 import json
 import os
@@ -191,24 +192,41 @@ def test_serve_warm(small_extractor, capsys, monkeypatch, caplog):
 
 
 def test_cuda_index_refused(monkeypatch):
+    """An index at or past the device count is refused, naming the count;
+    the others pass."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     for dev in ("cuda:1", torch.device("cuda", 3)):
-        with pytest.raises(ValueError, match="multi-device item of ROADMAP.md's Queue 1"):
+        with pytest.raises(ValueError, match="this host has 1 CUDA device$"):
             resolve_device(dev)
     assert resolve_device("cuda:0") == torch.device("cuda", 0)
     assert resolve_device(None) == torch.device("cuda")
-    with pytest.raises(ValueError, match="device 0 only"):
+    with pytest.raises(ValueError, match="1 CUDA device"):
         FeatureExtractor({}, {}, device="cuda:1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert resolve_device("cuda:3") == torch.device("cuda", 3)
+    with pytest.raises(ValueError, match="this host has 4 CUDA devices"):
+        resolve_device("cuda:4")
 
 
 def test_launch_uses_the_tensors_device_stream(monkeypatch):
-    asked, got = [], []
+    """The C call runs with the tensors' device current (a ``<<<>>>``
+    launch goes to the current device), on that device's stream."""
+    asked, got, current = [], [], []
+
+    @contextlib.contextmanager
+    def device_guard(device):
+        current.append(device)
+        yield
+        current.pop()
+
+    monkeypatch.setattr(torch.cuda, "device", device_guard)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: asked.append(device) or types.SimpleNamespace(cuda_stream=1234))
-    monkeypatch.setitem(_native._fns, "relax_probe", lambda *args: got.append(args) or 0)
-    dev = torch.device("cuda", 0)
+    monkeypatch.setitem(_native._fns, "relax_probe", lambda *args: got.append((args, list(current))) or 0)
+    dev = torch.device("cuda", 1)
     _native.launch("relax_probe", dev, 7, 8)
-    assert asked == [dev] and got == [(7, 8, 1234)]
+    assert asked == [dev] and got == [((7, 8, 1234), [dev])] and current == []
     monkeypatch.setitem(_native._fns, "relax_probe", lambda *args: 700)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         _native.launch("relax_probe", dev)

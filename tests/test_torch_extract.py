@@ -177,8 +177,8 @@ def test_extract_refuses(dataset, port_cli, tmp_path, capsys, monkeypatch, case)
             "--output", str(tmp_path), "--device", "cpu"]
     row = {"vid": VIDS[0], "mos": 50.0, "framerate": 4.0, "width": W, "height": H}
     if case == "n_data":
-        argv += ["--n-data", "2"]
-        err, match = NotImplementedError, "multi-device"
+        argv += ["--n-data", "2"]  # without torchrun or a process group: no mesh, no one-device run
+        err, match = RuntimeError, "start it with torchrun"
     elif case == "no_width":
         argv[4] = write_meta(tmp_path / "m.csv", [row], ("vid", "mos", "framerate", "height"))
         err, match = ValueError, "'width'"
