@@ -149,7 +149,30 @@ Phases (any failed check raises, so the exit code is not 0):
        row zero;
    (d) ``resolve_device`` refuses the index past the device count, naming
        the count;
-11. print the ``kernels`` JSON line, the card line and the final status line.
+11. the tools, full width (ResNet-50, ViT-B/16 depth 12, seeded), launch
+   counts set to 0 before each run and read after it:
+   (a) ``visualize`` through ``cli.main`` on a seeded 540x960 frame pair
+       written as PNGs, in bf16 and in f32, three calls each: the overlay
+       at the frame's shape, its 196 positions equal to
+       ``fragment_positions`` on the CPU, K3 = depth - 1 = 11 and no K1 or
+       K2 a call, the attention rows summing to 1 within the activation
+       type's rounding (2^-8 bf16, 1e-5 f32), the bf16 CLS map within
+       cosine 0.999 of the f32 one, ms a call; the f32 ViT's tokens at
+       240x256 (241 tokens through K3, the position table resized) against
+       the CPU's within 1e-4 of the largest, and a 256x256 input (257
+       tokens) refused;
+   (b) ``parity.production_numerics()`` on the card: Farneback flow (K1,
+       K2) against cv2 (mean <= 5e-3 px, p99 <= 5e-2 px) and the bf16
+       vector against the f32 one (cosine >= 0.9999, median relative
+       error <= 5e-2), with the launches;
+   (c) whether PIL imports (the features check's reference resizes with
+       it); where it does, ``parity --check features`` on the card (the
+       f32 pipeline; the reference on the CPU): every segment within its
+       bounds, exit code 0, the launches;
+   (d) where PIL imports, ``parity --check all`` with no blobs: ``ran`` 2
+       (features and production), ``ok``, head and demo skipped with
+       their missing flags named;
+12. print the ``kernels`` JSON line, the card line and the final status line.
 
 Exits with 1 and prints no result when CUDA is not available.  Details go
 to ``build/chip_smoke/chip_smoke.json``.
@@ -2106,6 +2129,194 @@ def run_mesh(streamed540: list, full1080: np.ndarray, one_process: dict) -> dict
 
 
 
+# ------------------------------------------------------------------ phase 11
+TOOLS_DIR = os.path.join(WORK_DIR, "tools")
+SUM_TOL = {"bf16": 2.0 ** -8, "f32": 1e-5}  # |row sum - 1| of the attention matrix: bf16 rounds each entry by 2^-9
+
+
+def run_cli_json(argv: list) -> tuple[int, dict]:
+    """(exit code, the JSON that ``cli.main(argv)`` prints)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc or 0, json.loads(buf.getvalue())
+
+
+def probe_pil() -> str | None:
+    """PIL's version, or None where it does not import (the oracle of
+    ``parity --check features`` resizes with PIL)."""
+    try:
+        import PIL
+    except ImportError:
+        return None
+    return PIL.__version__
+
+
+def run_tools() -> dict:
+    """Phase 11: ``visualize`` and ``parity`` at full width on the card."""
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+
+    def lap(step: str) -> None:
+        nonlocal t_phase
+        out["seconds"][step] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+    import cv2
+
+    from relaxtpu_torch import parity as parity_mod
+    from relaxtpu_torch import visualize as visualize_mod
+
+    frames = synthetic_bgr(2, H, W, seed=60).cpu().numpy()
+    f0, f1 = os.path.join(TOOLS_DIR, "f0.png"), os.path.join(TOOLS_DIR, "f1.png")
+    cv2.imwrite(f0, frames[0])
+    cv2.imwrite(f1, frames[1])
+    residual = np.abs(frames[0].astype(np.int32) - frames[1].astype(np.int32)).astype(np.uint8)
+    want_positions = visualize_mod.fragment_positions(residual, device="cpu")
+    seen = {}
+    real_attn, real_pos, real_build = (visualize_mod.last_selfattention, visualize_mod.fragment_positions,
+                                       cli._build_extractor)
+
+    def attn_spy(vit, img):
+        seen["img"], seen["attn"] = img, real_attn(vit, img)
+        return seen["attn"]
+
+    def pos_spy(*a, **k):
+        seen["positions"] = real_pos(*a, **k)
+        return seen["positions"]
+
+    rs, vs = seeded_states(vit_depth=12)
+    cls_maps = {}
+    print(f"  (a) visualize through cli.main on a seeded {H}x{W} PNG pair, ViT-B/16 depth 12")
+    visualize_mod.last_selfattention, visualize_mod.fragment_positions = attn_spy, pos_spy
+    try:
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            fx = FeatureExtractor(rs, vs, dtype=dtype, vit_depth=12, device="cuda")
+            cli._build_extractor = lambda args, _fx=fx: _fx
+            overlay = os.path.join(TOOLS_DIR, tag)
+            times, launches = [], []
+            for _ in range(3):
+                reset_counts()
+                t0 = time.perf_counter()
+                rc, line = run_cli_json(["visualize", "--frame", f0, "--next-frame", f1, "--output", overlay,
+                                         f"--{tag}"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                launches.append(counts())
+            img = cv2.imread(line["overlay"])
+            attn = seen["attn"]
+            vit_t = timed(lambda: real_attn(fx.vit, seen["img"]))
+            split = {  # warm ms of a call's parts: the two PNG reads, the ViT, the overlay's PNG write
+                "read_pngs": timed(lambda: (cv2.imread(f0), cv2.imread(f1)))["ms_median"],
+                "vit": vit_t["ms_median"], "vit_busy_share": vit_t["busy_share"],
+                "write_png": timed(lambda: cv2.imwrite(os.path.join(TOOLS_DIR, "w.png"), img))["ms_median"],
+            }
+            row_err = float(np.abs(attn.astype(np.float64).sum(-1) - 1).max())
+            cls_maps[tag] = visualize_mod.cls_patch_attention(attn).reshape(-1).astype(np.float64)
+            r = {"rc": rc, "line": line, "overlay_shape": list(img.shape) if img is not None else None,
+                 "positions_equal_cpu": seen["positions"] == want_positions, "launches": launches,
+                 "attn_shape": list(attn.shape), "row_sum_max_err": row_err, "ms": times,
+                 "ms_warm_median": statistics.median(times[1:]), "ms_split": split}
+            out[f"a_{tag}"] = r
+            print(f"  (a) {tag}: overlay {r['overlay_shape']}, {line['n_patches']} positions equal the CPU's: "
+                  f"{r['positions_equal_cpu']}, launches per call {launches}, attention {r['attn_shape']} rows "
+                  f"sum to 1 within {row_err:.2e} (bound {SUM_TOL[tag]:.1e}); ms per call {[round(t, 2) for t in times]}, "
+                  f"warm parts {split}")
+            if rc != 0 or r["overlay_shape"] != [H, W, 3]:
+                raise AssertionError(f"(a) {tag}: no overlay at the frame's shape: {r}")
+            if not r["positions_equal_cpu"] or line["n_patches"] != 196:
+                raise AssertionError(f"(a) {tag}: the fragment positions differ from the CPU's")
+            depth = len(fx.vit.blocks)
+            if any(n != {"K1": 0, "K2": 0, "K3": depth - 1} for n in launches):
+                raise AssertionError(f"(a) {tag}: expected K3 = {depth - 1} (depth - 1), no K1 or K2, a call; "
+                                     f"got {launches}")
+            if not row_err <= SUM_TOL[tag]:
+                raise AssertionError(f"(a) {tag}: attention rows do not sum to 1: {row_err}")
+            if tag == "f32":  # the non-224 position table through K3 (241 tokens) and K3's 256-token limit
+                x = synthetic_bgr(1, 240, 256, seed=61).cpu().flip(-1).float() / 255.0
+                x = x.permute(0, 3, 1, 2).contiguous()
+                cpu_vit = ViT(depth=depth)
+                cpu_vit.load_state_dict(vs)
+                with torch.inference_mode():
+                    want = cpu_vit.eval().tokens(x)
+                    reset_counts()
+                    got = fx.vit.tokens(x.cuda()).cpu()
+                    n240 = counts()
+                    try:
+                        fx.vit.tokens(torch.zeros((1, 3, 256, 256), device="cuda"))
+                    except ValueError as e:
+                        out["k3_limit_error"] = str(e)
+                    else:
+                        raise AssertionError("(a) a 256x256 input (257 tokens) ran through K3")
+                rel = float((got - want).abs().max() / want.abs().max())
+                out["tokens_240x256"] = {"rel_err_vs_cpu": rel, "launches": n240}
+                print(f"  (a) ViT tokens at 240x256 (15 x 16 patches, the position table resized): CUDA vs CPU "
+                      f"max error / max = {rel:.2e} (bound 1e-4), launches {n240}; 256x256 refused: "
+                      f"{out['k3_limit_error']}")
+                if not rel <= 1e-4 or n240["K3"] != depth:
+                    raise AssertionError(f"(a) non-224 tokens: {out['tokens_240x256']}")
+            del fx
+            torch.cuda.empty_cache()
+    finally:
+        visualize_mod.last_selfattention, visualize_mod.fragment_positions = real_attn, real_pos
+        cli._build_extractor = real_build
+    a, b = cls_maps["bf16"], cls_maps["f32"]
+    out["a_cls_cosine_bf16_f32"] = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    print(f"  (a) CLS attention map, cosine(bf16, f32) = {out['a_cls_cosine_bf16_f32']:.6f} (bound 0.999)")
+    if not out["a_cls_cosine_bf16_f32"] >= 0.999:
+        raise AssertionError(f"(a) the bf16 CLS map drifts from f32: {out['a_cls_cosine_bf16_f32']}")
+    lap("a")
+
+    print("  (b) production_numerics() on the card: flow against cv2, bf16 against f32")
+    per_flow = len(pyramid_levels(120, 160)) * FARNEBACK_PARAMS["iterations"]
+    reset_counts()
+    prod = parity_mod.production_numerics()
+    prod["launches"] = counts()
+    out["b"] = prod
+    print(f"  (b) flow mean {prod.get('flow_mean_err_px')} px, p99 {prod.get('flow_p99_err_px')} px (bounds 5e-3, "
+          f"5e-2); bf16 cosine {prod['bf16_cosine']!r}, median relative error {prod['bf16_median_rel']!r} (bounds "
+          f"0.9999, 5e-2); launches {prod['launches']}")
+    want_prod = {"K1": 3 * per_flow, "K2": 3 * per_flow, "K3": 24}
+    if not (prod.get("flow_ok") and prod["bf16_ok"] and prod["ok"]) or prod["launches"] != want_prod:
+        raise AssertionError(f"(b) production numerics: {prod} (launches expected {want_prod})")
+    lap("b")
+
+    out["pil"] = probe_pil()
+    print(f"  (c) PIL: {out['pil'] or 'does not import'}")
+    if out["pil"] is None:
+        print("  (c), (d) the features check's reference resizes with PIL, absent here: CPU host only")
+    else:
+        print("  (c) parity --check features on the card (f32); its reference on the CPU")
+        reset_counts()
+        rc, feats = run_cli_json(["parity", "--check", "features", "--device", "cuda"])
+        feats["launches"] = counts()
+        out["c"] = {"rc": rc, **feats}
+        for seg, r in feats["segments"].items():
+            print(f"  (c) {seg}: cosine {r['cosine']:.8f}, mean relative error "
+                  f"{r['mean_abs_err_over_mean_abs']:.3e}")
+        print(f"  (c) ok {feats['ok']}, exit code {rc}, launches {feats['launches']}")
+        if rc != 0 or not feats["ok"] or feats["launches"] != {"K1": per_flow, "K2": per_flow, "K3": 12}:
+            raise AssertionError(f"(c) feature parity: {out['c']}")
+        lap("c")
+
+        print("  (d) parity --check all with no blobs")
+        reset_counts()
+        rc, all_ = run_cli_json(["parity", "--check", "all", "--device", "cuda"])
+        launches = counts()
+        out["d"] = {"rc": rc, "ran": all_["ran"], "ok": all_["ok"], "launches": launches,
+                    "skipped": {k: v["skipped"] for k, v in all_["checks"].items() if "skipped" in v}}
+        print(f"  (d) ran {all_['ran']}, ok {all_['ok']}, exit code {rc}, skipped {out['d']['skipped']}, "
+              f"launches {launches}")
+        head, demo = out["d"]["skipped"].get("head", ""), out["d"]["skipped"].get("demo", "")
+        if (rc, all_["ran"], all_["ok"]) != (0, 2, True) or "--features-mat" not in head or "--video" not in demo:
+            raise AssertionError(f"(d) parity --check all: {out['d']}")
+        lap("d")
+    shutil.rmtree(TOOLS_DIR)
+    print(f"  phase 11 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2147,6 +2358,9 @@ def main() -> int:
     print("[10] multi-device: world size 1 under NCCL, 2 and 4 ranks sharing the card through gloo")
     mesh = run_mesh(streamed540, full1080, extraction["a"])
 
+    print("[11] tools: visualize, production numerics, parity --check features and all, full width")
+    tools = run_tools()
+
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
                "K3": ("mha", "relaxtpu_torch/csrc/attention.cu", "relaxtpu/ops/attention.py:34")}
@@ -2175,7 +2389,7 @@ def main() -> int:
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
                    "main_path": main_res, "serving": serving, "training": training,
-                   "extraction": extraction, "ingest": ingest, "mesh": mesh}, fh, indent=1)
+                   "extraction": extraction, "ingest": ingest, "mesh": mesh, "tools": tools}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

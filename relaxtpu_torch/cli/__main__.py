@@ -32,6 +32,12 @@ the JAX CLI does.  Example::
     python -m relaxtpu_torch.cli train --metadata-csv meta.csv \
         --features feats.npy --output mlp.npz --device cpu
 
+Tools: ``visualize`` (the ViT's last-block CLS attention over a frame
+pair's motion fragment, as a heatmap over the frame), ``parity`` (the
+strict-parity checks of ``relaxtpu_torch.parity``; exit code 1 when a check
+that ran fails) and ``report`` (results tables from reference-format
+training logs and VSFA ``.npy`` files; host only).
+
 ``--config run.json`` (before the subcommand) takes the defaults of every
 subcommand from a ``RunConfig`` file (``relaxtpu_torch.config``, the JAX
 package's format); explicit flags still win.
@@ -616,7 +622,7 @@ def cmd_train(args):
 
     median, _, results = run_repeated_holdout(
         meta, features, cfg, grey_indices=grey, progress=progress,
-        resume_dir=args.resume_dir, device=device,
+        resume_dir=args.resume_dir, device=device, artifacts_dir=args.artifacts_dir,
     )
     save_snapshot(args.output, median.snapshot)
     print(json.dumps({
@@ -696,6 +702,113 @@ def cmd_train_cross(args):
     result, _ = run_fixed_split(x_tr, y_tr, x_te, y_te, cfg, progress=print, device=device)
     save_snapshot(args.output, result.snapshot)
     print(json.dumps({"srcc": result.srcc, "plcc": result.plcc, "rmse": result.rmse}))
+
+
+def cmd_report(args):
+    """Cross-method results table from reference-format training logs and
+    VSFA ``.npy`` results, optionally beside the reference's published
+    numbers; printed fixed-width, and written as pandas would write it."""
+    from relaxtpu_torch.utils.report import (
+        REFERENCE_INTRA_DATASET,
+        against_baseline,
+        competitor_table,
+        format_table,
+        parse_vsfa_npy,
+        write_table_csv,
+    )
+
+    log_paths: dict = {}
+    for spec in args.log:
+        try:
+            method, ds, path = spec.split("=", 2)
+        except ValueError:
+            raise SystemExit(f"--log wants METHOD=DATASET=PATH, got: {spec}")
+        log_paths.setdefault(method, {})[ds] = path
+    rows = competitor_table(log_paths) if log_paths else []
+    for spec in args.vsfa_npy:
+        try:
+            ds, path = spec.split("=", 1)
+        except ValueError:
+            raise SystemExit(f"--vsfa-npy wants DATASET=PATH, got: {spec}")
+        rows.append({"method": "VSFA", "dataset": ds,
+                     **{k: v for k, v in parse_vsfa_npy(path).items() if k != "n_test"}})
+    if args.with_baseline:
+        rows = against_baseline(rows, REFERENCE_INTRA_DATASET)
+    if not rows:
+        raise SystemExit("nothing to report: pass --log/--vsfa-npy/--with-baseline")
+    print(format_table(rows))
+    if args.output_csv:
+        write_table_csv(args.output_csv, rows)
+
+
+def cmd_visualize(args):
+    """Fragment attention overlay: the residual's fragment positions, the
+    original frame's fragment through the ViT on the device, the head-mean
+    CLS attention of its last block mapped onto the frame."""
+    import cv2
+
+    from relaxtpu_torch.ops.fragments import fragment_pair
+    from relaxtpu_torch.visualize import (
+        cls_patch_attention,
+        fragment_positions,
+        last_selfattention,
+        map_attention_to_original,
+    )
+
+    extractor = _build_extractor(args)
+    prev = cv2.imread(args.frame)
+    nxt = cv2.imread(args.next_frame)
+    for path, img in ((args.frame, prev), (args.next_frame, nxt)):
+        if img is None:
+            raise SystemExit(f"could not read image: {path}")
+    residual = np.abs(prev.astype(np.int32) - nxt.astype(np.int32)).astype(np.uint8)
+    dev = extractor.device
+    _, ori_frag = fragment_pair(torch.from_numpy(residual)[None].to(dev), torch.from_numpy(prev)[None].to(dev))
+    positions = fragment_positions(residual, device=dev)
+    attn = last_selfattention(extractor.vit, ori_frag[0].cpu().numpy()[..., ::-1] / 255.0)
+    overlay = map_attention_to_original(prev, cls_patch_attention(attn).reshape(-1), positions)
+    out = args.output
+    if not os.path.splitext(out)[1]:  # a bare name or a directory: a PNG inside it
+        out = os.path.join(out, "attention_overlay.png")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    if not cv2.imwrite(out, overlay):
+        raise SystemExit(f"could not write overlay image: {out}")
+    print(json.dumps({"overlay": out, "n_patches": len(positions)}))
+
+
+def cmd_parity(args):
+    """The strict-parity checks (``relaxtpu_torch.parity``); 0 when the
+    check passes, else 1."""
+    from relaxtpu_torch import parity
+
+    if args.check in ("head", "demo") and not (args.model and args.imputer and args.scaler):
+        raise SystemExit("--model/--imputer/--scaler are required for this check")
+    if args.check == "all":
+        out = parity.all_parity(args)
+        print(json.dumps(out, indent=2))
+        return 0 if out["ok"] else 1
+    if args.check == "production":
+        out = parity.production_numerics(device=args.device)
+        print(json.dumps(out, indent=2))
+        return 0 if out.get("ok", True) else 1
+    if args.check == "head":
+        report = parity.head_parity(
+            args.dataset, args.features_mat, args.metadata_csv, args.result_mat, args.model,
+            args.imputer, args.scaler, args.expected_csv, greyscale_report=args.greyscale_report,
+            use_bn=not args.no_bn, device=args.device,
+        )
+        print(report.to_json())
+        return 0 if report.ok else 1
+    if args.check == "features":
+        out = parity.feature_parity(args.video, args.resnet_weights, args.vit_weights, device=args.device)
+        print(json.dumps(out, indent=2))
+        return 0 if out["ok"] else 1
+    out = parity.demo_parity(
+        args.video, args.video_type, args.model, args.imputer, args.scaler,
+        args.resnet_weights, args.vit_weights, expected_mos=args.expected_mos, device=args.device,
+    )
+    print(json.dumps(out))
+    return 0 if out.get("ok", True) else 1
 
 
 def _add_model_flags(sp) -> None:
@@ -888,7 +1001,8 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                     help="greyscale report csv (auto-located for youtube_ugc)")
     sp.add_argument("--resume-dir", default=None, help="per-repeat checkpoint dir")
     sp.add_argument("--artifacts-dir", default=None,
-                    help="write train.log (hyperparameters + per-repeat results) here")
+                    help="write the run's artifacts here: train.log (hyperparameters and per-repeat "
+                    "results), per-repeat loss curves, the median repeat's logistic-fit scatter")
     _add_device_flag(sp)
     sp.set_defaults(fn=cmd_train)
 
@@ -935,12 +1049,52 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     sp.add_argument("--no-bn", action="store_true")
     _add_device_flag(sp)
     sp.set_defaults(fn=cmd_train_cross)
+
+    sp = sub.add_parser("report", help="results tables from run logs (host only)")
+    sp.add_argument("--log", action="append", default=[], metavar="METHOD=DATASET=PATH",
+                    help="reference-format training log to parse (repeatable)")
+    sp.add_argument("--vsfa-npy", action="append", default=[], metavar="DATASET=PATH",
+                    help="VSFA results .npy to parse (repeatable)")
+    sp.add_argument("--with-baseline", action="store_true",
+                    help="append the reference's published intra-dataset rows")
+    sp.add_argument("--output-csv", default=None)
+    sp.set_defaults(fn=cmd_report)
+
+    sp = sub.add_parser("visualize", help="the ViT's last-block attention over a frame pair's fragment")
+    sp.add_argument("--frame", required=True, help="original frame PNG")
+    sp.add_argument("--next-frame", required=True, help="successor frame PNG")
+    sp.add_argument("--output", default="attention_overlay.png",
+                    help="overlay PNG; a bare name or a directory gets attention_overlay.png inside it")
+    _add_backbone_flags(sp)
+    sp.set_defaults(fn=cmd_visualize)
+
+    sp = sub.add_parser("parity", help="strict-parity checks against the reference")
+    sp.add_argument("--check", choices=["head", "demo", "features", "production", "all"], default="head",
+                    help="features: the f32 pipeline's 35,203 vector against the independent torch + cv2 + "
+                    "PIL reference (no blobs needed); production: the port's shipped numerics on the "
+                    "device (flow against cv2, bf16 against f32 features); all: every check whose inputs "
+                    "are present, one JSON verdict")
+    sp.add_argument("--dataset", default="konvid_1k")
+    sp.add_argument("--features-mat", default=None)
+    sp.add_argument("--metadata-csv", default=None)
+    sp.add_argument("--result-mat", default=None)
+    sp.add_argument("--expected-csv", default=None, help="log/predict_score/*.csv")
+    sp.add_argument("--greyscale-report", default=None)
+    sp.add_argument("--model", default=None, help="reference .pth (required for head/demo checks)")
+    sp.add_argument("--imputer", default=None)
+    sp.add_argument("--scaler", default=None)
+    sp.add_argument("--no-bn", action="store_true")
+    sp.add_argument("--video", default=None)
+    sp.add_argument("--video-type", default="konvid_1k")
+    sp.add_argument("--expected-mos", type=float, default=None)
+    _add_backbone_flags(sp)
+    sp.set_defaults(fn=cmd_parity)
     return p, dict(sub.choices)
 
 
 # Subcommands --config does not feed: they read no RunConfig field
-# (``metadata`` scans container conventions, not a RunConfig dataset; the
-# JAX CLI's ``report`` has no counterpart here yet).
+# (``metadata`` scans container conventions, not a RunConfig dataset;
+# ``report`` parses external training logs).
 CONFIG_EXCLUDED = {"metadata", "report"}
 
 
@@ -986,6 +1140,8 @@ def _apply_config(argv, subparsers: dict) -> None:
     set_defaults("greyscale", dataset=ex.dataset, root=ex.data_root, metadata_dir=ex.metadata_dir)
     set_defaults("warmup", ingest=ex.ingest, **backbone)  # the port pads nothing: no frame bucket
     set_defaults("train-cross", epochs=tr.epochs, no_bn=not tr.use_bn)
+    set_defaults("visualize", **backbone)
+    set_defaults("parity", dataset=ex.dataset, **backbone)
 
 
 def main(argv=None):
@@ -994,8 +1150,8 @@ def main(argv=None):
     parser, subparsers = build_parser()
     _apply_config(argv, subparsers)
     args = parser.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

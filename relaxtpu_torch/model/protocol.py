@@ -1,9 +1,6 @@
 """Evaluation protocols (counterpart of ``relaxtpu/model/protocol.py:33-310``):
 repeated holdout (intra-dataset), the fixed LSVQ / cross-dataset split, and
 cross-dataset fine-tuning and zero-shot evaluation.
-
-The loss-curve and scatter figures of ``--artifacts-dir`` are not ported
-(matplotlib); ``train.log`` is, in the CLI.
 """
 
 from __future__ import annotations
@@ -37,6 +34,7 @@ from relaxtpu_torch.model.train import (
     train_and_evaluate,
 )
 from relaxtpu_torch.utils.checkpoint import load_snapshot, save_snapshot
+from relaxtpu_torch.utils.plots import plot_losses, plot_results
 
 log = logging.getLogger("relaxtpu_torch.protocol")
 
@@ -57,15 +55,21 @@ def run_repeated_holdout(
     progress: Callable[[str], None] = log.info,
     resume_dir: str | None = None,
     device: str | torch.device | None = None,
+    artifacts_dir: str | None = None,
 ) -> tuple[RepeatResult, float, list[RepeatResult]]:
     """n_repeats x {80/20 holdout at random_state ceil(8.8 i) -> k-fold
     training -> test metrics}; the median model.
 
     ``resume_dir``: each repeat's snapshot and metrics are kept there, and
-    repeats found there are not run again.
+    repeats found there are not run again.  ``artifacts_dir``: the
+    reference's figures, each trained repeat's mean fold losses
+    (``losses_repeat_XX.png``) and the median repeat's logistic-fit scatter
+    (``median_scatter.png``).
     """
     results: list[RepeatResult] = []
     trainer: MlpTrainer | None = None
+    if artifacts_dir:
+        os.makedirs(artifacts_dir, exist_ok=True)
     for i in range(1, cfg.n_repeats + 1):
         if resume_dir:
             ck = os.path.join(resume_dir, f"repeat_{i:02d}.npz")
@@ -84,7 +88,11 @@ def run_repeated_holdout(
         x_tr, y_tr, _ = preprocess_like_reference(x_tr, y_tr)
         x_te, y_te, _ = preprocess_like_reference(x_te, y_te)
 
-        snapshot, trainer, _, _ = train_and_evaluate(x_tr, y_tr, cfg, trainer=trainer, device=device)
+        snapshot, trainer, tr_losses, val_losses = train_and_evaluate(x_tr, y_tr, cfg, trainer=trainer,
+                                                                      device=device)
+        if artifacts_dir:
+            plot_losses(tr_losses, val_losses, os.path.join(artifacts_dir, f"losses_repeat_{i:02d}.png"),
+                        title=f"repeat {i}: mean fold losses")
         y_pred = trainer.predict(snapshot, x_te)
         try:
             _, plcc, rmse, srcc, krcc = compute_correlation_metrics(y_te, y_pred)
@@ -104,6 +112,9 @@ def run_repeated_holdout(
     median_result, median_val, _ = select_median_model(results, cfg.select_criteria)
     progress(f"median test SRCC {np.median([r.srcc for r in results]):.4f} "
              f"({cfg.select_criteria} median {median_val:.4f})")
+    if artifacts_dir and len(median_result.y_pred):
+        plot_results(median_result.y_test, median_result.y_pred, os.path.join(artifacts_dir, "median_scatter.png"),
+                     title=f"median repeat ({cfg.select_criteria} {median_val:.4f})")
     return median_result, median_val, results
 
 

@@ -6,17 +6,29 @@ LayerNorm eps 1e-6, exact GELU, final norm; the feature is the patch tokens
 ``x[:, 1:]``.  Parameter names follow the DINO checkpoint.  Attention goes
 through ``ops.attention.mha`` (kernel K3 on CUDA).
 
-Inputs are 224x224 (the position table is not interpolated; the non-224
-path of the JAX package is not on this slice's path).
+An input other than 224x224 gets the position table resized bicubically
+(jax's Keys cubic, ``interpolate_pos_embed``).  K3 holds at most 256 tokens,
+so on CUDA an input of more than 255 patches raises; the JAX package's
+einsum attention has no such limit.  ``last_attention`` is the last
+block's attention matrix (``reduce="last_attn"`` of the JAX package), for
+the visualisation: the blocks before it run as in ``tokens``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from relaxtpu_torch.ops.attention import mha
+from relaxtpu_torch.ops.attention import MAX_TOKENS, attention_probs, mha
+from relaxtpu_torch.ops.resize import resize_hw
+
+
+def vit_preprocess(img_rgb01: torch.Tensor) -> torch.Tensor:
+    """ViT input transform: identity on [0, 1] RGB (ToTensor only)."""
+    return img_rgb01
 
 
 class Attention(nn.Module):
@@ -26,14 +38,23 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=True)
         self.proj = nn.Linear(dim, dim)
 
+    def _qkv(self, x):
+        """Column slices of the packed projection, (B, N, H, D) views."""
+        c = x.shape[-1]
+        qkv = self.qkv(x)
+        return (qkv[..., i * c : (i + 1) * c].unflatten(-1, (self.num_heads, c // self.num_heads))
+                for i in range(3))
+
     def forward(self, x):
         b, n, c = x.shape
-        hd = c // self.num_heads
-        qkv = self.qkv(x)
-        # column slices of the packed projection, (B, N, H, D) views
-        q, k, v = (qkv[..., i * c : (i + 1) * c].unflatten(-1, (self.num_heads, hd)) for i in range(3))
-        y = mha(q, k, v, scale=hd**-0.5)
+        q, k, v = self._qkv(x)
+        y = mha(q, k, v, scale=(c // self.num_heads) ** -0.5)
         return self.proj(y.reshape(b, n, c))
+
+    def probs(self, x):
+        """The attention matrix (B, heads, N, N) in x's type."""
+        q, k, _ = self._qkv(x)
+        return attention_probs(q, k, (x.shape[-1] // self.num_heads) ** -0.5)
 
 
 class Mlp(nn.Module):
@@ -71,23 +92,50 @@ class ViT(nn.Module):
     def __init__(self, depth: int = 12, patch_size: int = 16, embed_dim: int = 768,
                  num_heads: int = 12):
         super().__init__()
+        self.patch_size = patch_size
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, (224 // patch_size) ** 2 + 1, embed_dim))
         self.blocks = nn.Sequential(*[Block(embed_dim, num_heads) for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
-    def tokens(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, 224, 224) -> patch tokens (B, 196, D) after the final norm."""
-        b = x.shape[0]
+    def interpolate_pos_embed(self, hp: int, wp: int) -> torch.Tensor:
+        """The (1, N+1, D) position table for an hp x wp patch grid: as it
+        is for the square grid it was trained at, else its patch rows
+        resized bicubically in f32 (``relaxtpu/models/vit.py:103-117``)."""
+        pos = self.pos_embed
+        n = pos.shape[1] - 1
+        if hp * wp == n and hp == wp:
+            return pos
+        side = math.isqrt(n)
+        grid = pos[0, 1:].float().T.reshape(-1, side, side)  # (D, side, side)
+        grid = resize_hw(grid, (hp, wp), "bicubic", antialias=True)
+        return torch.cat([pos[:, :1], grid.reshape(-1, hp * wp).T[None].to(pos.dtype)], dim=1)
+
+    def _embed(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) -> (B, N+1, D): patch tokens (the grid floors H and W
+        to multiples of the patch size), CLS first, plus positions."""
+        b, _, h, w = x.shape
+        hp, wp = h // self.patch_size, w // self.patch_size
+        if x.device.type == "cuda" and hp * wp + 1 > MAX_TOKENS:
+            raise ValueError(f"{h}x{w} gives {hp * wp} patches: kernel K3 takes at most {MAX_TOKENS} "
+                             f"tokens ({MAX_TOKENS - 1} patches and the CLS token) on CUDA")
         y = self.patch_embed.proj(x).flatten(2).transpose(1, 2)  # row-major patches
-        if y.shape[1] + 1 != self.pos_embed.shape[1]:
-            raise ValueError(f"ViT takes 224x224 inputs, got {tuple(x.shape[-2:])}")
-        y = torch.cat([self.cls_token.expand(b, -1, -1), y], dim=1) + self.pos_embed
-        return self.norm(self.blocks(y))[:, 1:]
+        return torch.cat([self.cls_token.expand(b, -1, -1), y], dim=1) + self.interpolate_pos_embed(hp, wp)
+
+    def tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) -> patch tokens (B, N, D) after the final norm."""
+        return self.norm(self.blocks(self._embed(x)))[:, 1:]
+
+    def last_attention(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) -> the last block's attention (B, heads, N+1, N+1)
+        in the activation type; the blocks before it run as in ``tokens``."""
+        y = self.blocks[:-1](self._embed(x))
+        last = self.blocks[-1]
+        return last.attn.probs(last.norm1(y))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, 224, 224) -> (B, 3*D) f32 mean | max | std (ddof 0) over
+        """(B, 3, H, W) -> (B, 3*D) f32 mean | max | std (ddof 0) over
         the patch tokens."""
         t = self.tokens(x).float()
         return torch.cat([t.mean(dim=1), t.amax(dim=1), t.std(dim=1, correction=0)], dim=-1)

@@ -10,6 +10,9 @@ accumulated in f32 and written in the activation type.  K3
 
 ``mha`` launches K3 for CUDA tensors and runs the plain PyTorch version for
 CPU tensors.  Layout is token-major (B, N, H, D), as in the JAX package.
+``attention_probs`` is the probability matrix itself, which the JAX
+package computes outside any Pallas kernel (the visualisation path,
+``relaxtpu/models/vit.py:134-137``) and K3 never writes out.
 """
 
 from __future__ import annotations
@@ -18,15 +21,21 @@ import torch
 
 from relaxtpu_torch import _native
 
-_MAX_TOKENS = 256  # K3 keeps whole score rows on chip
+MAX_TOKENS = 256  # K3 keeps whole score rows on chip
 _HEAD_DIMS = (32, 64)
 _ENTRY = {torch.float32: "relax_mha_f32", torch.bfloat16: "relax_mha_bf16"}
 
 
+def attention_probs(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(QK^T * scale) of (B, N, H, D) q and k -> (B, H, N, N): scores
+    accumulated in f32, the probabilities cast to q's type (``vit.py:60-61``)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return torch.softmax(s, dim=-1).to(q.dtype)
+
+
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """Plain PyTorch K3: the einsum form of ``vit.py:60-64``."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    p = torch.softmax(s, dim=-1).to(q.dtype)
+    p = attention_probs(q, k, scale)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
 
 
@@ -48,8 +57,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torc
             raise ValueError(f"{name} must match q's shape {tuple(q.shape)} and strides {q.stride()}")
     if q.stride(3) != 1 or q.stride(2) != d:
         raise ValueError(f"the (H, D) axes must be dense, got strides {q.stride()}")
-    if not 1 <= n <= _MAX_TOKENS or d not in _HEAD_DIMS:
-        raise ValueError(f"K3 takes 1 <= N <= {_MAX_TOKENS} and D in {_HEAD_DIMS}, got N={n}, D={d}")
+    if not 1 <= n <= MAX_TOKENS or d not in _HEAD_DIMS:
+        raise ValueError(f"K3 takes 1 <= N <= {MAX_TOKENS} and D in {_HEAD_DIMS}, got N={n}, D={d}")
     size = q.element_size()
     if any(t.data_ptr() % 16 for t in (q, k, v)) or (q.stride(0) * size) % 16 or (q.stride(1) * size) % 16:
         raise ValueError(f"K3 needs 16-byte aligned token rows: pointers and the B and N strides "

@@ -66,6 +66,20 @@ def gather_fragment(
     return canvas.permute(0, 1, 3, 2, 4, 5).reshape(p, target_size, target_size, c)
 
 
+def fragment_pair(
+    residual: torch.Tensor,
+    original: torch.Tensor,
+    patch_size: int = PATCH_SIZE,
+    target_size: int = TARGET_SIZE,
+    top_n: int = TOP_N,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Residual fragment and the co-located original-frame fragment,
+    (P, T, T, C) each: one scoring pass drives both gathers."""
+    ids = top_patch_indices(patch_scores(residual, patch_size), top_n)
+    return (gather_fragment(residual, ids, patch_size, target_size),
+            gather_fragment(original, ids, patch_size, target_size))
+
+
 def merge_fragments(diff_frag: torch.Tensor, flow_frag: torch.Tensor) -> torch.Tensor:
     """0.5/0.5 blend with uint8 saturate and round-half-to-even
     (``cv2.addWeighted``)."""

@@ -3,8 +3,11 @@
 The JAX package resizes with ``jax.image.resize``: "linear" without
 antialias for the flow pyramid and the flow upsample
 (``relaxtpu/ops/flow.py:96-101,399-401``), and "linear" / "lanczos3" with
-antialias to 224x224 for the backbones (``relaxtpu/features/pipeline.py:84-86``).
-Torch has no lanczos3 and antialiases differently, so this module builds
+antialias to 224x224 for the backbones (``relaxtpu/features/pipeline.py:84-86``),
+and "bicubic" with antialias for the ViT's position table at inputs other
+than 224x224 (``relaxtpu/models/vit.py:103-117``).  Torch has no lanczos3,
+its bicubic is Keys' cubic with a = -0.75, not jax's a = -0.5, and it
+antialiases differently, so this module builds
 jax's own separable weight matrices in numpy (its scale-and-translate rule:
 half-pixel centres, the kernel widened by 1/scale when downsampling with
 antialias, columns renormalised, samples outside the input zeroed) and
@@ -38,7 +41,15 @@ def _lanczos3(x: np.ndarray) -> np.ndarray:
     return np.where(x > radius, 0.0, out)
 
 
-_KERNELS = {"linear": _triangle, "lanczos3": _lanczos3}
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5, as jax evaluates it."""
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x
+                   + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out)
+
+
+_KERNELS = {"linear": _triangle, "lanczos3": _lanczos3, "bicubic": _keys_cubic}
 
 
 @functools.lru_cache(maxsize=64)

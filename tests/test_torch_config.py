@@ -42,6 +42,9 @@ ARGV = {
     "finetune": ["--dataset", "konvid_1k", "--metadata-csv", "m.csv", "--features", "f.npy",
                  "--base-model", "b.npz"],
     "train-cross": PAIR,
+    "visualize": ["--frame", "a.png", "--next-frame", "b.png"],
+    "parity": [],
+    "report": [],
 }
 
 
