@@ -8,18 +8,29 @@ Phases (any failed check raises, so the exit code is not 0):
 2. build the CUDA kernels from ``relaxtpu_torch/csrc`` and time the build;
    print each kernel function's registers and spills (ptxas) and the count
    of tensor-core instructions in each K3 function's SASS (cuobjdump),
-   failing if a bf16 K3 function has none;
+   failing if a bf16 K3 function (short or long) has none, or if the long
+   K3 or the generic-radius K2 functions are missing;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (matrix update) and K2 (box blur + solve) at the four 540p and the four
    1080p pyramid levels with 16 pairs, at the 4K finest level (2160x3840)
    with 4 pairs, with per-pixel random flows up to +-40 px, and at 16x20
-   and 67x131; K2 also at winsize 5 and 17 (and at 1080x1920 with 2 pairs)
-   and refusing 19; then the flow's live f32 planes a pair at 1080p
-   (``max_memory_allocated`` around ``farneback_flow``, 16 pairs) must fit
-   the pipeline's working-set model; K3
-   (attention) at (48, 197, 12, 64) and at N in {1, 17, 64, 197, 208, 256}
-   x D in {32, 64}, in f32 and bf16, contiguous and as packed-qkv slices;
-   every input sits at the start of a NaN-filled allocation;
+   and 67x131; K2 also at winsize 5 and 17 (and at 1080x1920 with 2 pairs),
+   at winsize 19, 21, 31 and 63 (the generic-radius kernel, each call
+   counted) on the 540p levels, 16x20 and 67x131, and winsize 17 then 19
+   launching the strip kernel then the generic one; K3 (attention) at
+   (48, 197, 12, 64) and at N in {1, 17, 64, 197, 208, 256} x D in {32, 64}
+   (the short entries) and N in {257, 300, 577, 1025} x D in {32, 64, 80,
+   128, 256} (the long entries), in f32 and bf16, contiguous and as
+   packed-qkv slices, each call launching the entry ``_plan`` names; the
+   long entry called directly at N = 197 and 256 against the short one;
+   every input sits at the start of a NaN-filled allocation; then the
+   flow's live f32 planes a pair at 1080p (``max_memory_allocated`` around
+   ``farneback_flow``, 16 pairs) must fit the pipeline's working-set model;
+   the long K3 timed at (48, 577, 12, 64) (ViT-B/16 at 384x384) and at the
+   main path's (48, 197, 12, 64) beside the short entry, SDPA beside both,
+   in bf16 and f32; ``farneback_flow(winsize=21)`` on 2 pairs of the 540p
+   clip, CUDA against CPU (mean <= 1e-3 px, p99 <= 1e-2 px), with the counts
+   set to 0 before it: K1 = K2 = 12, all 12 K2 on the generic kernel;
 4. the 35,203 vector of a CUDA run against a CPU run (2 frames, 240x320,
    depth-2 ViT, f32 with TF32 off): per-segment cosine >= 0.99999;
 5. the full-width main path: a seeded 540x960 raw I420 clip of 32 frames at
@@ -30,7 +41,10 @@ Phases (any failed check raises, so the exit code is not 0):
    then one more video records every kernel call's inputs, and each kernel,
    its plain version and (for K3) ``F.scaled_dot_product_attention`` are
    checked and timed on exactly those inputs, per video: CUDA events
-   around repeated calls, and the profiler's device durations alone;
+   around repeated calls, and the profiler's device durations alone; none
+   of the 12 K2 and K3 launches is on the generic K2 or the long K3; the
+   generic K2 at winsize 21 timed on the recorded K2 inputs beside the
+   strip kernel at 15;
 6. the serving paths, full width (ResNet-50, ViT-B/16 depth 12, seeded),
    in bf16 and f32, each run with the launch counts set to 0 before it and
    read after it:
@@ -158,9 +172,11 @@ Phases (any failed check raises, so the exit code is not 0):
        K2 a call, the attention rows summing to 1 within the activation
        type's rounding (2^-8 bf16, 1e-5 f32), the bf16 CLS map within
        cosine 0.999 of the f32 one, ms a call; the f32 ViT's tokens at
-       240x256 (241 tokens through K3, the position table resized) against
-       the CPU's within 1e-4 of the largest, and a 256x256 input (257
-       tokens) refused;
+       240x256 (241 tokens through the short K3, the position table
+       resized) against the CPU's within 1e-4 of the largest; at 256x256
+       and 384x384 (257 and 577 tokens: the long K3, ``depth`` launches,
+       the counts set to 0 before each) in f32 within 1e-4 of the CPU's
+       largest token and in bf16 within cosine 0.999 of the CPU's f32;
    (b) ``parity.production_numerics()`` on the card: Farneback flow (K1,
        K2) against cv2 (mean <= 5e-3 px, p99 <= 5e-2 px) and the bf16
        vector against the f32 one (cosine >= 0.9999, median relative
@@ -223,8 +239,10 @@ from relaxtpu_torch.models.vgg import VGG16
 from relaxtpu_torch.models.vit import ViT
 from relaxtpu_torch.model.mlp import Mlp, flax_init_
 from relaxtpu_torch.models.porters import mlp_from_jax
+from relaxtpu_torch.ops import attention as attention_mod
 from relaxtpu_torch.ops.attention import mha, mha_plain
-from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve, box_blur_solve_plain
+from relaxtpu_torch.ops.boxsolve import STRIP_WINSIZE, box_blur_solve, box_blur_solve_plain
+from relaxtpu_torch.ops.colorspace import bgr_to_gray
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
 from relaxtpu_torch.parallel.distributed import initialize
@@ -252,7 +270,14 @@ SERVE_COUNTS = [(16, 16), (16, 16), (14, 13), (12, 12)]
 H_HI, W_HI, FRAMES_HI = 1080, 1920, 40  # -> 20 frames, 20 pairs
 COS_BOUND = {"f32": 0.99999, "bf16": 0.9999}
 K1_FLOPS_PER_PX = 80    # corner weights, 5-plane gather, averaging, flow terms, taper, products
-K2_FLOPS_PER_PX = 155   # 5 planes x 28 box adds, scaling, the 2x2 solve
+LONG_ATTN_SHAPE = (FRAMES + 2 * PAIRS, 577, 12, 64)  # ViT-B/16 at 384x384
+WIDE_WINDOWS = (19, 21, 31, 63)  # K2 past the strip kernel's largest window
+WIDE_WINSIZE = 21                # the slice's flow window
+
+
+def k2_flops_per_px(winsize: int = 15) -> int:
+    """5 planes x 2 (winsize - 1) box adds, scaling, the 2x2 solve: 155 at 15."""
+    return 10 * (winsize - 1) + 15
 
 TOL = {"K1": 1e-5, "K2": 1e-4, "K3_f32": 1e-4, "K3_bf16": 2e-2}
 
@@ -331,7 +356,7 @@ def report_build(so: str) -> dict:
     """ptxas's registers and spills for every kernel function, and the count
     of tensor-core instructions (HMMA/HGMMA) in each K3 function's SASS
     (cuobjdump from the toolkit that built them); raises if a bf16 K3
-    function has none."""
+    function, short or long, has none."""
     funcs = {}
     for src in ("warp.cu", "boxsolve.cu", "attention.cu"):
         name = None
@@ -353,12 +378,15 @@ def report_build(so: str) -> dict:
         elif name and "mha" in name and re.search(r"\bHG?MMA\b", line):
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
-        kernel = re.search(r"(update_matrices|box_blur_solve|mha_bf16|mha_f32)_kernel", name)
+        kernel = re.search(r"(update_matrices|box_blur_solve|box_rows|box_cols_solve|mha_bf16(_long)?"
+                           r"|mha_f32(_long)?)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
         mma = f"; {f['tensor_core_instructions']} HMMA/HGMMA" if "mha" in name else ""
         print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
+    if not any("mha_bf16_long" in n for n in funcs) or not any("box_rows" in n for n in funcs):
+        raise AssertionError("the long K3 or the generic-radius K2 functions are missing from the build")
     if not bf16_mha or not all(f.get("tensor_core_instructions") for f in bf16_mha):
         raise AssertionError("a bf16 K3 function has no tensor-core instructions in its SASS")
     return funcs
@@ -370,13 +398,16 @@ def check_flow_kernels(gen: torch.Generator) -> dict:
     levels and the 4K finest level, with
     per-pixel random flows up to +-40 px (many corners clipped, many pixels
     outside) and NaN-padded inputs; K2 also at ragged shapes, at other odd
-    windows, and refusing a window above its largest."""
-    worst = {"K1": 0.0, "K2": 0.0}
+    windows, and at windows past the strip kernel's largest (19, 21, 31, 63)
+    on the 540p levels and the ragged shapes, each launching the
+    generic-radius kernel."""
+    worst = {"K1": 0.0, "K2": 0.0, "K2_generic": 0.0}
     shapes = [(PAIRS, hk, wk, 15) for _, hk, wk in pyramid_levels(H, W)]
     shapes += [(PAIRS, hk, wk, 15) for _, hk, wk in pyramid_levels(H_HI, W_HI)]
-    shapes += [(4, 2 * H_HI, 2 * W_HI, 15), (2, H_HI, W_HI, 5), (2, H_HI, W_HI, MAX_WINSIZE)]
+    shapes += [(4, 2 * H_HI, 2 * W_HI, 15), (2, H_HI, W_HI, 5), (2, H_HI, W_HI, STRIP_WINSIZE)]
     shapes += [(2, 16, 20, 15), (2, 67, 131, 15), (2, 67, 131, 5), (PAIRS, 135, 240, 5),
-               (2, 67, 131, MAX_WINSIZE), (PAIRS, 135, 240, MAX_WINSIZE)]
+               (2, 67, 131, STRIP_WINSIZE), (PAIRS, 135, 240, STRIP_WINSIZE)]
+    wide = {(PAIRS, hk, wk) for _, hk, wk in pyramid_levels(H, W)} | {(2, 16, 20), (2, 67, 131)}
     for p, hk, wk, ws in shapes:
         r0 = torch.randn((p, 5, hk, wk), generator=gen, device="cuda") * 50
         r1 = torch.randn((p, 5, hk, wk), generator=gen, device="cuda") * 50
@@ -390,38 +421,72 @@ def check_flow_kernels(gen: torch.Generator) -> dict:
         err, rel = rel_err(box_blur_solve(m, ws), box_blur_solve_plain(m, ws))
         check(f"K2 {p}x{hk}x{wk} winsize {ws}", rel, TOL["K2"])
         worst["K2"] = max(worst["K2"], err)
+        if (p, hk, wk) in wide and ws == 15:
+            wide.discard((p, hk, wk))
+            for wws in WIDE_WINDOWS:
+                n0 = box_blur_solve.generic_launches
+                err, rel = rel_err(box_blur_solve(m, wws), box_blur_solve_plain(m, wws))
+                check(f"K2 {p}x{hk}x{wk} winsize {wws} (generic radius)", rel, TOL["K2"])
+                worst["K2_generic"] = max(worst["K2_generic"], err)
+                if box_blur_solve.generic_launches != n0 + 1:
+                    raise AssertionError(f"K2 winsize {wws} did not launch the generic-radius kernel")
         del r0, r1, flow, m
         torch.cuda.empty_cache()
-    m = torch.zeros((1, 5, 16, 16), device="cuda")
-    try:
-        box_blur_solve(m, MAX_WINSIZE + 2)
-    except ValueError as e:
-        print(f"  K2 winsize {MAX_WINSIZE + 2} refused: {e}")
-    else:
-        raise AssertionError(f"K2 took winsize {MAX_WINSIZE + 2}, above its largest")
+    if wide:
+        raise AssertionError(f"no K2 check at wide windows for {wide}")
+    m = torch.rand((1, 5, 16, 16), device="cuda")
+    n0 = (box_blur_solve.launches, box_blur_solve.generic_launches)
+    box_blur_solve(m, STRIP_WINSIZE)
+    box_blur_solve(m, STRIP_WINSIZE + 2)
+    n1 = (box_blur_solve.launches - n0[0], box_blur_solve.generic_launches - n0[1])
+    print(f"  K2 winsize {STRIP_WINSIZE} then {STRIP_WINSIZE + 2}: launches {n1[0]}, of them generic {n1[1]}")
+    if n1 != (2, 1):
+        raise AssertionError(f"K2 routing: winsize {STRIP_WINSIZE} must take the strip kernel and "
+                             f"{STRIP_WINSIZE + 2} the generic one, got (launches, generic) {n1}")
     return worst
 
 
 def check_attention_kernel(gen: torch.Generator) -> dict:
     """K3 in f32 and bf16 at the ViT shape and at N in {1, 17, 64, 197, 208,
-    256} x D in {32, 64}, on contiguous NaN-padded inputs and on column
-    slices of a NaN-padded packed qkv tensor."""
-    cases = [ATTN_SHAPE] + [(2, n, 3, d) for n in (1, 17, 64, 197, 208, 256) for d in (32, 64)]
+    256} x D in {32, 64} (the short entries), and at N in {257, 300, 577,
+    1025} x D in {32, 64, 80, 128, 256} (the long entries; D = 80 padded to
+    128), on contiguous NaN-padded inputs and on column slices of a
+    NaN-padded packed qkv tensor, each call launching the entry ``_plan``
+    names; then the long entry called directly at N = 197 and 256 against
+    the short one."""
+    short = [ATTN_SHAPE] + [(2, n, 3, d) for n in (1, 17, 64, 197, 208, 256) for d in (32, 64)]
+    long = [(2, n, 3, d) for n in (257, 300, 577, 1025) for d in (32, 64, 80, 128, 256)]
     worst = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        worst[f"K3_{tag}"] = 0.0
-        for b, n, h, d in cases:
+        worst[f"K3_{tag}"] = worst[f"K3_long_{tag}"] = 0.0
+        for b, n, h, d in short + long:
+            key = f"K3_long_{tag}" if (b, n, h, d) in long else f"K3_{tag}"
             scale = d**-0.5
             qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
             q, k, v = (nan_padded(qkv[..., i * h * d : (i + 1) * h * d].reshape(b, n, h, d)) for i in range(3))
             want = mha_plain(q, k, v, scale)
+            n0 = mha.long_launches
             err, rel = rel_err(mha(q, k, v, scale), want)
-            check(f"K3 {tag} {(b, n, h, d)} contiguous", rel, TOL[f"K3_{tag}"])
+            check(f"K3 {tag} {(b, n, h, d)} contiguous", rel, TOL[f"K3_{tag}"], verbose=key == f"K3_{tag}")
             packed = nan_padded(qkv)
             qs, ks, vs = (packed[..., i * h * d : (i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3))
             err2, rel2 = rel_err(mha(qs, ks, vs, scale), want)
-            check(f"K3 {tag} {(b, n, h, d)} packed-qkv slices", rel2, TOL[f"K3_{tag}"])
-            worst[f"K3_{tag}"] = max(worst[f"K3_{tag}"], err, err2)
+            check(f"K3 {tag} {(b, n, h, d)} packed-qkv slices", rel2, TOL[f"K3_{tag}"], verbose=key == f"K3_{tag}")
+            worst[key] = max(worst[key], err, err2)
+            entry, _ = attention_mod._plan(n, d, dtype)
+            if mha.long_launches - n0 != (2 if entry == attention_mod._LONG[dtype] else 0):
+                raise AssertionError(f"K3 {tag} {(b, n, h, d)}: not the entry _plan names ({entry})")
+        print(f"  K3 {tag} long entries at N in (257, 300, 577, 1025) x D in (32, 64, 80, 128, 256): largest "
+              f"|kernel - plain| {worst[f'K3_long_{tag}']:.3e}, every call within {TOL[f'K3_{tag}']:.0e} of max |plain|")
+        for n in (197, 256):
+            for d in (32, 64):
+                q, k, v = (nan_padded(torch.randn((2, n, 3, d), generator=gen, device="cuda").to(dtype))
+                           for _ in range(3))
+                short_o = mha(q, k, v, d**-0.5)
+                long_o = attention_mod._launch(q, k, v, d**-0.5, attention_mod._LONG[dtype])
+                err, rel = rel_err(long_o, short_o)
+                check(f"K3 {tag} long entry against the short one at {(2, n, 3, d)}", rel, TOL[f"K3_{tag}"])
+                worst[f"K3_long_{tag}"] = max(worst[f"K3_long_{tag}"], err)
     return worst
 
 
@@ -481,7 +546,8 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
             else:
                 px = args[0].shape[0] * args[0].shape[-2] * args[0].shape[-1]
                 r["bytes"] += px * (17 if key == "K1" else 7) * 4
-                r["flops"] += px * (K1_FLOPS_PER_PX if key == "K1" else K2_FLOPS_PER_PX)
+                r["flops"] += px * (K1_FLOPS_PER_PX if key == "K1" else
+                                    k2_flops_per_px(kwargs.get("winsize", args[1] if len(args) > 1 else 15)))
         r["bound_ms"], r["bound_by"] = bound(
             r["bytes"], r["flops"], args[0].dtype)
         r["device_ms"] = device_ms(kernel_fns)
@@ -559,8 +625,114 @@ def counts() -> dict:
     return {"K1": update_matrices.launches, "K2": box_blur_solve.launches, "K3": mha.launches}
 
 
+def slice_counts() -> dict:
+    """The launches of the entries this slice added, a part of ``counts()``'s:
+    the generic-radius K2 (winsize > 17) and the long K3 (N > 256 or D not
+    32 or 64)."""
+    return {"K2_generic": box_blur_solve.generic_launches, "K3_long": mha.long_launches}
+
+
 def reset_counts() -> None:
     update_matrices.launches = box_blur_solve.launches = mha.launches = 0
+    box_blur_solve.generic_launches = mha.long_launches = 0
+
+
+def time_k2_generic(recorded: list) -> dict:
+    """K2 at ``WIDE_WINSIZE`` on the main path's recorded M planes (the
+    generic-radius kernel) beside the strip kernel at the recorded window,
+    summed over the calls: ms by events, device ms by the profiler, the
+    plain version's ms, the generic kernel held against its plain version,
+    and its bound."""
+    r = {"calls": len(recorded), "err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0, "strip_ms": 0.0,
+         "bytes": 0.0, "flops": 0.0, "library_ms": None}
+    generic_fns, strip_fns = [], []
+    for args, kwargs in recorded:
+        m, ws = args[0], kwargs.get("winsize", args[1] if len(args) > 1 else 15)
+        err, rel = rel_err(box_blur_solve(m, WIDE_WINSIZE), box_blur_solve_plain(m, WIDE_WINSIZE))
+        check(f"K2 winsize {WIDE_WINSIZE} on main-path input {tuple(m.shape)}", rel, TOL["K2"], verbose=False)
+        r["err"], r["rel"] = max(r["err"], err), max(r["rel"], rel)
+        generic_fns.append(lambda m=m: box_blur_solve(m, WIDE_WINSIZE))
+        strip_fns.append(lambda m=m, ws=ws: box_blur_solve(m, ws))
+        r["ms"] += cuda_ms(generic_fns[-1])
+        r["strip_ms"] += cuda_ms(strip_fns[-1])
+        r["plain_ms"] += cuda_ms(lambda m=m: box_blur_solve_plain(m, WIDE_WINSIZE), iters=5)
+        px = m.shape[0] * m.shape[-2] * m.shape[-1]
+        r["bytes"] += px * 7 * 4
+        r["flops"] += px * k2_flops_per_px(WIDE_WINSIZE)
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], torch.float32)
+    r["device_ms"], r["strip_device_ms"] = device_ms(generic_fns), device_ms(strip_fns)
+    print(f"  K2 generic radius at winsize {WIDE_WINSIZE} on the {r['calls']} main-path inputs: {r['ms']:.4f} ms "
+          f"(device only {r['device_ms']}; plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.4f} by "
+          f"{r['bound_by']}; largest error / max |plain| {r['rel']:.3e}); the strip kernel at the recorded "
+          f"window {r['strip_ms']:.4f} ms (device only {r['strip_device_ms']})")
+    return r
+
+
+def time_long_attention(gen: torch.Generator) -> dict:
+    """The long K3 entries at ViT-B/16's 384x384 shape (``LONG_ATTN_SHAPE``)
+    and, for the record, at the main path's 224x224 shape beside the short
+    entry; SDPA on the same inputs as the library yardstick."""
+    out = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for shape in (LONG_ATTN_SHAPE, ATTN_SHAPE):
+            b, n, h, d = shape
+            scale = d**-0.5
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def long_fn():
+                return attention_mod._launch(q, k, v, scale, attention_mod._LONG[dtype])
+
+            def sdpa_fn():
+                return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+            err, rel = rel_err(long_fn(), mha_plain(q, k, v, scale))
+            check(f"K3 long {tag} {shape}", rel, TOL[f"K3_{tag}"])
+            r = {"err": err, "rel": rel, "ms": cuda_ms(long_fn), "device_ms": device_ms([long_fn]),
+                 "plain_ms": cuda_ms(lambda: mha_plain(q, k, v, scale), iters=5),
+                 "library_ms": cuda_ms(sdpa_fn), "library_device_ms": device_ms([sdpa_fn])}
+            r["bound_ms"], r["bound_by"] = bound(4.0 * b * n * h * d * q.element_size(), 4.0 * b * h * n * n * d, dtype)
+            if n <= attention_mod.SHORT_TOKENS:
+                r["short_ms"] = cuda_ms(lambda: mha(q, k, v, scale))
+                r["short_device_ms"] = device_ms([lambda: mha(q, k, v, scale)])
+            print(f"  K3 long {tag} {shape}: {r['ms']:.4f} ms (device only {r['device_ms']}; plain "
+                  f"{r['plain_ms']:.4f}; SDPA {r['library_ms']:.4f}, device only {r['library_device_ms']}; "
+                  f"bound {r['bound_ms']:.4f} by {r['bound_by']})"
+                  + (f"; the short entry {r['short_ms']:.4f} ms, device only {r['short_device_ms']}"
+                     if "short_ms" in r else ""))
+            out[f"{tag}_{n}"] = r
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_flow() -> dict:
+    """``farneback_flow`` at ``WIDE_WINSIZE`` on 2 pairs of the main path's
+    540p clip, CUDA against CPU, with the launches of the CUDA run (the
+    slice's path for the generic-radius K2) and its ms beside winsize 15."""
+    gray = bgr_to_gray(synthetic_bgr(4, H, W, seed=7))
+    prev, nxt = gray[0::2].contiguous(), gray[1::2].contiguous()
+    params = dict(FARNEBACK_PARAMS, winsize=WIDE_WINSIZE)
+    reset_counts()
+    got = farneback_flow(prev, nxt, **params)
+    torch.cuda.synchronize()
+    n = counts() | slice_counts()
+    want = farneback_flow(prev.cpu(), nxt.cpu(), **params)
+    err = (got.cpu() - want).abs()
+    out = {"launches": n, "mean_err_px": err.mean().item(), "p99_err_px": err.quantile(0.99).item(),
+           "max_err_px": err.max().item(), "max_abs_flow_px": want.abs().max().item(),
+           "ms": cuda_ms(lambda: farneback_flow(prev, nxt, **params), iters=5),
+           "ms_winsize_15": cuda_ms(lambda: farneback_flow(prev, nxt, **FARNEBACK_PARAMS), iters=5)}
+    print(f"  farneback_flow winsize {WIDE_WINSIZE}, 2 pairs at {H}x{W}: CUDA vs CPU mean {out['mean_err_px']:.3e} "
+          f"px, p99 {out['p99_err_px']:.3e}, max {out['max_err_px']:.3e} (bounds 1e-3, 1e-2: 5x inside the "
+          f"0.05 px cv2 tolerance; largest |flow| {out['max_abs_flow_px']:.2f} px); launches {n}; "
+          f"{out['ms']:.3f} ms (winsize 15: {out['ms_winsize_15']:.3f})")
+    want_n = {"K1": 12, "K2": 12, "K3": 0, "K2_generic": 12, "K3_long": 0}
+    if n != want_n:
+        raise AssertionError(f"wide-window flow: expected launches {want_n}, got {n}")
+    if not (out["mean_err_px"] <= 1e-3 and out["p99_err_px"] <= 1e-2) or not torch.isfinite(got).all():
+        raise AssertionError(f"wide-window flow: CUDA differs from CPU: {out}")
+    return out
 
 
 def run_main_path() -> dict:
@@ -583,8 +755,9 @@ def run_main_path() -> dict:
         print(f"  {tag}: MOS {mos!r}, launches per video {n}")
         if not math.isfinite(mos):
             raise AssertionError(f"{tag} MOS is not finite: {mos}")
-        if n != {"K1": 12, "K2": 12, "K3": 12}:
-            raise AssertionError(f"{tag}: expected 12 launches of each kernel, got {n}")
+        if n != {"K1": 12, "K2": 12, "K3": 12} or any(slice_counts().values()):
+            raise AssertionError(f"{tag}: expected 12 launches of each kernel on the short K3 and the strip "
+                                 f"K2, got {n}, of them {slice_counts()}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -599,13 +772,15 @@ def run_main_path() -> dict:
         vec = fx.video_feature_i420(fbuf, nbuf, h, w)
         if vec.shape != (35203,) or not np.isfinite(vec).all():
             raise AssertionError(f"{tag} vector is not 35,203 finite values")
-        kernels = time_on_main_path_inputs(
-            record_kernel_inputs(lambda: pred.predict_file(clip, framerate=4.0, width=W, height=H)), tag)
+        calls = record_kernel_inputs(lambda: pred.predict_file(clip, framerate=4.0, width=W, height=H))
+        kernels = time_on_main_path_inputs(calls, tag)
         out[tag] = {
             "mos": mos, "launches": n, "warm_ms_median": statistics.median(times),
             "warm_ms": times, "max_memory_allocated": peak, "kernels": kernels, "vec": vec,
         }
-        del fx, pred, kernels
+        if tag == "bf16":
+            out[tag]["k2_generic"] = time_k2_generic(calls["K2"])
+        del fx, pred, kernels, calls
         torch.cuda.empty_cache()
     vec_f32 = out["f32"].pop("vec")
     cos = segment_cosines(out["bf16"].pop("vec"), vec_f32)
@@ -2188,6 +2363,20 @@ def run_tools() -> dict:
 
     rs, vs = seeded_states(vit_depth=12)
     cls_maps = {}
+    cpu_vit = ViT(depth=12)
+    cpu_vit.load_state_dict(vs)
+    cpu_vit.eval()
+    references = {}
+
+    def vit_reference(hw: tuple) -> tuple:
+        """A seeded (1, 3, h, w) image in [0, 1] and the f32 CPU ViT's tokens of it."""
+        if hw not in references:
+            x = synthetic_bgr(1, *hw, seed=61 + [(240, 256), (256, 256), (384, 384)].index(hw)).cpu().flip(-1).float() / 255.0
+            x = x.permute(0, 3, 1, 2).contiguous()
+            with torch.inference_mode():
+                references[hw] = (x, cpu_vit.tokens(x))
+        return references[hw]
+
     print(f"  (a) visualize through cli.main on a seeded {H}x{W} PNG pair, ViT-B/16 depth 12")
     visualize_mod.last_selfattention, visualize_mod.fragment_positions = attn_spy, pos_spy
     try:
@@ -2233,29 +2422,32 @@ def run_tools() -> dict:
                                      f"got {launches}")
             if not row_err <= SUM_TOL[tag]:
                 raise AssertionError(f"(a) {tag}: attention rows do not sum to 1: {row_err}")
-            if tag == "f32":  # the non-224 position table through K3 (241 tokens) and K3's 256-token limit
-                x = synthetic_bgr(1, 240, 256, seed=61).cpu().flip(-1).float() / 255.0
-                x = x.permute(0, 3, 1, 2).contiguous()
-                cpu_vit = ViT(depth=depth)
-                cpu_vit.load_state_dict(vs)
+            # the non-224 position table through K3: 240x256 (241 tokens, the short entry; f32), and
+            # 256x256 (257) and 384x384 (577 tokens), the long entry, in both types
+            vit_dtype = next(fx.vit.parameters()).dtype
+            for hw in (((240, 256),) if tag == "f32" else ()) + ((256, 256), (384, 384)):
+                x, want = vit_reference(hw)
                 with torch.inference_mode():
-                    want = cpu_vit.eval().tokens(x)
                     reset_counts()
-                    got = fx.vit.tokens(x.cuda()).cpu()
-                    n240 = counts()
-                    try:
-                        fx.vit.tokens(torch.zeros((1, 3, 256, 256), device="cuda"))
-                    except ValueError as e:
-                        out["k3_limit_error"] = str(e)
-                    else:
-                        raise AssertionError("(a) a 256x256 input (257 tokens) ran through K3")
-                rel = float((got - want).abs().max() / want.abs().max())
-                out["tokens_240x256"] = {"rel_err_vs_cpu": rel, "launches": n240}
-                print(f"  (a) ViT tokens at 240x256 (15 x 16 patches, the position table resized): CUDA vs CPU "
-                      f"max error / max = {rel:.2e} (bound 1e-4), launches {n240}; 256x256 refused: "
-                      f"{out['k3_limit_error']}")
-                if not rel <= 1e-4 or n240["K3"] != depth:
-                    raise AssertionError(f"(a) non-224 tokens: {out['tokens_240x256']}")
+                    got = fx.vit.tokens(x.cuda().to(vit_dtype)).float().cpu()
+                    torch.cuda.synchronize()
+                    n = counts() | slice_counts()
+                tokens = (hw[0] // 16) * (hw[1] // 16) + 1
+                tr = {"tokens": tokens, "launches": n, "shape_ok": got.shape == want.shape}
+                if tag == "f32":
+                    tr["rel_err_vs_cpu"] = float((got - want).abs().max() / want.abs().max())
+                    ok, what = tr["rel_err_vs_cpu"] <= 1e-4, f"max error / max = {tr['rel_err_vs_cpu']:.2e} (bound 1e-4)"
+                else:
+                    a64, b64 = got.double().reshape(-1), want.double().reshape(-1)
+                    tr["cosine_vs_cpu_f32"] = float(a64 @ b64 / (a64.norm() * b64.norm()))
+                    ok, what = tr["cosine_vs_cpu_f32"] >= 0.999, f"cosine {tr['cosine_vs_cpu_f32']:.6f} (bound 0.999)"
+                out.setdefault("tokens", {}).setdefault(f"{hw[0]}x{hw[1]}", {})[tag] = tr
+                print(f"  (a) {tag} ViT tokens at {hw[0]}x{hw[1]} ({tokens} tokens, the position table resized): "
+                      f"CUDA vs CPU f32 {what}, launches {n}")
+                long = depth if tokens > attention_mod.SHORT_TOKENS else 0
+                want_n = {"K1": 0, "K2": 0, "K3": depth, "K2_generic": 0, "K3_long": long}
+                if not ok or not tr["shape_ok"] or n != want_n:
+                    raise AssertionError(f"(a) {tag} non-224 tokens at {hw}: {tr} (launches expected {want_n})")
             del fx
             torch.cuda.empty_cache()
     finally:
@@ -2336,6 +2528,8 @@ def main() -> int:
     stress = check_flow_kernels(gen) | check_attention_kernel(gen)
     torch.cuda.synchronize()
     flow_mem = flow_live_planes()
+    long_attn = time_long_attention(gen)
+    wide_flow = check_wide_flow()
 
     print("[4] CUDA run against CPU run (2 frames, 240x320, depth-2 ViT, f32)")
     cos_cpu = check_cuda_vs_cpu()
@@ -2382,12 +2576,34 @@ def main() -> int:
             "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
             "serving_shapes": shapes,
         })
+    # this slice's entries: launches from their own paths (the ViT at 384x384 in phase 11 (a), the
+    # flow at winsize 21 in phase 3), each run with the counts set to 0 just before it
+    for tag in ("bf16", "f32"):
+        r = long_attn[f"{tag}_{LONG_ATTN_SHAPE[1]}"]
+        kernels.append({
+            "name": f"K3 mha long entry ({tag}, {LONG_ATTN_SHAPE})", "route": "cuda",
+            "source": sources["K3"][1], "replaces": sources["K3"][2],
+            "launches": tools["tokens"]["384x384"][tag]["launches"]["K3_long"],
+            "max_abs_err": max(r["err"], stress[f"K3_long_{tag}"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
+        })
+    r = main_res["bf16"]["k2_generic"]
+    kernels.append({
+        "name": f"K2 box_blur_solve generic radius (winsize {WIDE_WINSIZE})", "route": "cuda",
+        "source": sources["K2"][1], "replaces": sources["K2"][2],
+        "launches": wide_flow["launches"]["K2_generic"], "max_abs_err": max(r["err"], stress["K2_generic"]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "device_ms": r["device_ms"], "library_device_ms": None,
+    })
 
     with open(os.path.join(WORK_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "build": build_info, "kernels": kernels,
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
+                   "long_attention": long_attn, "wide_window_flow": wide_flow,
                    "main_path": main_res, "serving": serving, "training": training,
                    "extraction": extraction, "ingest": ingest, "mesh": mesh, "tools": tools}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -40,8 +40,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "relax_update_matrices": (_P, _P, _P, _P, _I, _I, _I, _P),
     "relax_box_blur_solve": (_P, _P, _I, _I, _I, _I, _P),
+    "relax_box_blur_solve_generic": (_P, _P, _P, _I, _I, _I, _I, _P),
     "relax_mha_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
+    "relax_mha_f32_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
+    "relax_mha_bf16_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -37,6 +37,28 @@
 // key-major, V's load into K's buffer overlaps the softmax (4 threads a
 // row), and P V runs as 4-query x D/16 micro-tiles.  At N = 197 a block
 // takes ~110 KB, so two share an SM.
+//
+// Long rows (N > 256, or a head dim other than 32 and 64: fused_mha takes
+// any N and D; the wrapper pads D with zeros to the next of 32, 64, 128 and
+// 256).  A score row no longer fits on chip, so the softmax runs in two
+// passes over key tiles staged in shared memory: pass 1 computes S tile by
+// tile and keeps each query row's running max m and sum l in f32; pass 2
+// recomputes S, forms P = exp(s - m) / l in f32, casts P to the activation
+// type, and accumulates P V in f32 before O is written once.  Online
+// (flash) rescaling of O would divide after P V and round P at another
+// place than the JAX package; two passes keep its numerics for one more
+// Q K^T.  At (48, 577, 12, 64) that is 4 B H N^2 D = 49 GFLOP of the
+// function's work (170 MB of q/k/v/o: bytes bound bf16 at ~0.05 ms, the f32
+// FMA rate bounds f32 at ~0.73 ms) plus 25 GFLOP of recomputed scores.
+// bf16: a block of 4 warps per (image, head, 64 queries), each warp 16
+// queries; key tiles (64 keys, 32 at D = 256) double-buffered by 16-byte
+// cp.async; Q K^T and P V by mma.sync.m16n8k16 through ldmatrix as in the
+// short kernel, with the same per-score accumulation order.  f32: a block
+// of 256 threads per (image, head, 32 queries); a thread forms 2 queries x
+// the tile's keys / 16 scores by FMAs from shared memory, and in pass 2
+// writes P to shared memory key-major and accumulates 2 queries x D/16
+// output dims.  Simple and right first: no TMA, wgmma or warp
+// specialisation yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -420,6 +442,330 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------- long rows
+template <int D>
+__host__ __device__ constexpr int long_keys() {  // keys a tile, in both types
+  return D >= 256 ? 32 : 64;
+}
+
+// rows [r0, r0 + ROWS) of a (B, N, H, D) operand into ``dst`` (row stride
+// D + one 16-byte chunk; rows past N as zeros: 0 x NaN is NaN in P V), by
+// 16-byte cp.async over a block of THREADS
+template <typename T, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long base, long long sn,
+                                           int r0, int N) {
+  constexpr int E = 16 / sizeof(T), LD = D + E, CH = D / E;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * E;
+    if (r0 + r < N)
+      cp_async16(dst + r * LD + c, src + base + (long long)(r0 + r) * sn + c);
+    else
+      *reinterpret_cast<uint4*>(dst + r * LD + c) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+constexpr int LQ = 64;  // queries a long bf16 block: 4 warps x 16
+
+template <int D>
+constexpr size_t bf16_long_smem() {  // Q tile, two K tiles, two V tiles
+  return sizeof(bf16) * (size_t)(LQ + 4 * long_keys<D>()) * (D + 8);
+}
+
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, long long base,
+                                           long long sn, int r0, int N) {
+  stage_rows<bf16, D, ROWS, 128>(dst, src, base, sn, r0, N);
+}
+
+// s = Q K^T * scale for a warp's 16 queries (rows of qs) and KN keys (rows
+// of ks, the first being key ``key0``); keys >= N masked to -inf.  n8 tile
+// j holds keys 8j + 2t (+1) of rows g and g + 8, as in the short kernel,
+// and each score sums its k-steps in the short kernel's order.
+template <int D, int KN>
+__device__ __forceinline__ void long_scores(float (&s)[KN / 8][4], const bf16* qs, const bf16* ks,
+                                            int key0, int N, float scale, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < KN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qa[4];
+    ldmatrix_x4(qa, qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nt = 0; nt < KN / 16; ++nt) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, ks + (16 * nt + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16(s[2 * nt], qa, kb[0], kb[1]);
+      mma_bf16(s[2 * nt + 1], qa, kb[2], kb[3]);
+    }
+  }
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] *= scale;
+      if (key0 + 8 * j + 2 * t + (e & 1) >= N) s[j][e] = -INFINITY;
+    }
+}
+
+// q, k, v: (B, N, H, D) sharing the element strides (sb, sn, D, 1), rows
+// 16-byte aligned; o: contiguous (B, N, H, D).  Block (x, h, b) takes
+// queries LQ x .. LQ x + LQ - 1 of (image b, head h).
+template <int D>
+__global__ void __launch_bounds__(128)
+mha_bf16_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, int N, int H,
+                     long long sb, long long sn, float scale) {
+  constexpr int KN = long_keys<D>();
+  constexpr int LD = D + 8;  // ldmatrix rows on distinct banks, as in the short kernel
+  constexpr int NJ = KN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const qs = reinterpret_cast<bf16*>(smem_raw);  // LQ x LD
+  bf16* const kbuf = qs + LQ * LD;                     // 2 x KN x LD
+  bf16* const vbuf = kbuf + 2 * KN * LD;               // 2 x KN x LD
+  const int h = blockIdx.y;
+  const long long base = (long long)blockIdx.z * sb + (long long)h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * LQ;
+  const int tiles = (N + KN - 1) / KN;
+  const bf16* const qw = qs + warp * 16 * LD;  // this warp's 16 queries
+
+  stage_bf16<D, LQ>(qs, q, base, sn, q0, N);
+  stage_bf16<D, KN>(kbuf, k, base, sn, 0, N);
+  cp_async_commit();
+
+  // pass 1: running max and sum of rows g (index 0) and g + 8 (index 1)
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {  // the next tile lands during this one
+      stage_bf16<D, KN>(kbuf + ((it + 1) & 1) * KN * LD, k, base, sn, KN * (it + 1), N);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[NJ][4];
+    long_scores<D, KN>(s, qw, kbuf + (it & 1) * KN * LD, KN * it, N, scale, lane);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) tm = fmaxf(tm, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+      const float m = fmaxf(mx[half], tm);  // finite: every tile holds a key < N
+      float ts = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) ts += expf(s[j][2 * half] - m) + expf(s[j][2 * half + 1] - m);
+      ts += __shfl_xor_sync(0xffffffffu, ts, 1);
+      ts += __shfl_xor_sync(0xffffffffu, ts, 2);
+      sum[half] = sum[half] * expf(mx[half] - m) + ts;
+      mx[half] = m;
+    }
+    __syncthreads();  // the tile's buffer is free for the tile after next
+  }
+
+  // pass 2: P = exp(s - m) / l in f32, cast to bf16; O = P V in f32
+  stage_bf16<D, KN>(kbuf, k, base, sn, 0, N);
+  stage_bf16<D, KN>(vbuf, v, base, sn, 0, N);
+  cp_async_commit();
+  const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      const int nb = ((it + 1) & 1) * KN * LD;
+      stage_bf16<D, KN>(kbuf + nb, k, base, sn, KN * (it + 1), N);
+      stage_bf16<D, KN>(vbuf + nb, v, base, sn, KN * (it + 1), N);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[NJ][4];
+    long_scores<D, KN>(s, qw, kbuf + (it & 1) * KN * LD, KN * it, N, scale, lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;  // exp(-inf) = 0 for masked keys
+        s[j][e] = div_by(expf(s[j][e] - mx[half]), sum[half], rs[half]);
+      }
+    const bf16* const vs = vbuf + (it & 1) * KN * LD;
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dn * 16 +
+                                  (lane >> 4) * 8);
+        mma_bf16(acc[2 * dn], pa, vb[0], vb[1]);
+        mma_bf16(acc[2 * dn + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + 16 * warp + g + 8 * half;
+    if (row >= N) continue;
+    bf16* op = o + (((long long)blockIdx.z * N + row) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(op + 8 * j) = pack_bf16(acc[j][2 * half], acc[j][2 * half + 1]);
+  }
+}
+
+// -------------------------------------------------------------- long f32
+constexpr int LQF = 32;   // queries a long f32 block
+constexpr int NTL = 256;  // threads: 16 query pairs x 16 lanes
+
+template <int D>
+constexpr size_t f32_long_smem() {  // Q tile, a K tile, a V tile, P key-major
+  constexpr int KN = long_keys<D>();
+  return sizeof(float) * ((size_t)(LQF + 2 * KN) * (D + 4) + (size_t)KN * (LQF + 4));
+}
+
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, long long base,
+                                          long long sn, int r0, int N) {
+  stage_rows<float, D, ROWS, NTL>(dst, src, base, sn, r0, N);
+}
+
+// Thread (ty, tx) holds queries 2 ty, 2 ty + 1 and, of a key tile, keys
+// tx + 16 m (m < KN / 16); in P V the output dims DT tx .. DT tx + DT - 1.
+template <int D>
+__global__ void __launch_bounds__(NTL)
+mha_f32_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int N, int H,
+                    long long sb, long long sn, float scale) {
+  constexpr int KN = long_keys<D>();
+  constexpr int LD = D + 4;  // 8 consecutive rows hit 8 distinct bank quads
+  constexpr int SLD = LQF + 4;
+  constexpr int MC = KN / 16;
+  constexpr int DT = D / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* const qs = smem;           // LQF x LD
+  float* const ks = qs + LQF * LD;  // KN x LD
+  float* const vs = ks + KN * LD;   // KN x LD
+  float* const ps = vs + KN * LD;   // KN x SLD
+  const int h = blockIdx.y;
+  const long long base = (long long)blockIdx.z * sb + (long long)h * D;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int q0 = blockIdx.x * LQF;
+  const int tiles = (N + KN - 1) / KN;
+
+  stage_f32<D, LQF>(qs, q, base, sn, q0, N);
+  cp_async_commit();
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f}, rs[2] = {0.0f, 0.0f};
+  float acc[2][DT];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < DT; ++e) acc[i][e] = 0.0f;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) rs[0] = __frcp_rn(sum[0]), rs[1] = __frcp_rn(sum[1]);
+    for (int it = 0; it < tiles; ++it) {
+      __syncthreads();  // the last tile's K, V and P are no longer read
+      stage_f32<D, KN>(ks, k, base, sn, KN * it, N);
+      if (pass == 1) stage_f32<D, KN>(vs, v, base, sn, KN * it, N);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      float s[2][MC];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int m = 0; m < MC; ++m) s[i][m] = 0.0f;
+      const float* const qr = qs + 2 * ty * LD;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(qr + d);
+        const float4 a1 = *reinterpret_cast<const float4*>(qr + LD + d);
+#pragma unroll
+        for (int m = 0; m < MC; ++m) {
+          const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 16 * m) * LD + d);
+          s[0][m] = fmaf(a0.x, kv.x, s[0][m]);
+          s[0][m] = fmaf(a0.y, kv.y, s[0][m]);
+          s[0][m] = fmaf(a0.z, kv.z, s[0][m]);
+          s[0][m] = fmaf(a0.w, kv.w, s[0][m]);
+          s[1][m] = fmaf(a1.x, kv.x, s[1][m]);
+          s[1][m] = fmaf(a1.y, kv.y, s[1][m]);
+          s[1][m] = fmaf(a1.z, kv.z, s[1][m]);
+          s[1][m] = fmaf(a1.w, kv.w, s[1][m]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int m = 0; m < MC; ++m) {
+          s[i][m] *= scale;
+          if (KN * it + tx + 16 * m >= N) s[i][m] = -INFINITY;
+        }
+      if (pass == 0) {
+        // a query's scores of the tile lie across the 16 lanes of its half-warp
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float tm = -INFINITY;
+#pragma unroll
+          for (int m = 0; m < MC; ++m) tm = fmaxf(tm, s[i][m]);
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1) tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, off));
+          const float mm = fmaxf(mx[i], tm);  // finite: every tile holds a key < N
+          float ts = 0.0f;
+#pragma unroll
+          for (int m = 0; m < MC; ++m) ts += expf(s[i][m] - mm);
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1) ts += __shfl_xor_sync(0xffffffffu, ts, off);
+          sum[i] = sum[i] * expf(mx[i] - mm) + ts;
+          mx[i] = mm;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int m = 0; m < MC; ++m)
+        *reinterpret_cast<float2*>(ps + (tx + 16 * m) * SLD + 2 * ty) =
+            make_float2(div_by(expf(s[0][m] - mx[0]), sum[0], rs[0]),
+                        div_by(expf(s[1][m] - mx[1]), sum[1], rs[1]));
+      __syncthreads();
+#pragma unroll 4
+      for (int j = 0; j < KN; ++j) {
+        const float2 pj = *reinterpret_cast<const float2*>(ps + j * SLD + 2 * ty);
+        const float* const vr = vs + j * LD + DT * tx;
+        float vv[DT];
+#pragma unroll
+        for (int e = 0; e < DT; e += 2) {
+          const float2 t2 = *reinterpret_cast<const float2*>(vr + e);
+          vv[e] = t2.x, vv[e + 1] = t2.y;
+        }
+#pragma unroll
+        for (int e = 0; e < DT; ++e) {
+          acc[0][e] = fmaf(pj.x, vv[e], acc[0][e]);
+          acc[1][e] = fmaf(pj.y, vv[e], acc[1][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + 2 * ty + i;
+    if (row >= N) continue;
+    float* op = o + (((long long)blockIdx.z * N + row) * H + h) * D + DT * tx;
+#pragma unroll
+    for (int e = 0; e < DT; e += 2) *reinterpret_cast<float2*>(op + e) = make_float2(acc[i][e], acc[i][e + 1]);
+  }
+}
+
 // --------------------------------------------------------------- launch
 // The dynamic shared-memory opt-in is set once per kernel function and
 // device (a PerDevice static in each launcher instantiation), to the most it
@@ -470,6 +816,32 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_bf16_long(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+                     long long sb, long long sn, float scale, cudaStream_t stream) {
+  constexpr size_t smem = bf16_long_smem<D>();
+  static PerDevice opted;
+  const int attr = opt_in(opted, mha_bf16_long_kernel<D>, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((unsigned)((N + LQ - 1) / LQ), (unsigned)H, (unsigned)B);
+  mha_bf16_long_kernel<D><<<grid, 128, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, H, sb, sn, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32_long(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+                    long long sb, long long sn, float scale, cudaStream_t stream) {
+  constexpr size_t smem = f32_long_smem<D>();
+  static PerDevice opted;
+  const int attr = opt_in(opted, mha_f32_long_kernel<D>, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((unsigned)((N + LQF - 1) / LQF), (unsigned)H, (unsigned)B);
+  mha_f32_long_kernel<D><<<grid, NTL, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, sb, sn, scale);
+  return (int)cudaGetLastError();
+}
+
 // 16-byte cp.async needs every row start aligned: the pointers and both
 // strides (in bytes) multiples of 16.
 bool rows_aligned(const void* q, const void* k, const void* v, long long sb, long long sn,
@@ -500,4 +872,36 @@ extern "C" int relax_mha_bf16(const void* q, const void* k, const void* v, void*
   if (D == 64) return launch_bf16<64>(q, k, v, o, B, N, H, sb, sn, scale, s);
   if (D == 32) return launch_bf16<32>(q, k, v, o, B, N, H, sb, sn, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Any N >= 1 and D in {32, 64, 128, 256} (the wrapper pads other head dims
+// with zeros); layout as the short entries.
+extern "C" int relax_mha_f32_long(const void* q, const void* k, const void* v, void* o, int B,
+                                  int N, int H, int D, long long sb, long long sn, float scale,
+                                  void* stream) {
+  if (N < 1 || B > 65535 || H > 65535 || !rows_aligned(q, k, v, sb, sn, sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32: return launch_f32_long<32>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    case 64: return launch_f32_long<64>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    case 128: return launch_f32_long<128>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    case 256: return launch_f32_long<256>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int relax_mha_bf16_long(const void* q, const void* k, const void* v, void* o, int B,
+                                   int N, int H, int D, long long sb, long long sn, float scale,
+                                   void* stream) {
+  if (N < 1 || B > 65535 || H > 65535 || !rows_aligned(q, k, v, sb, sn, sizeof(bf16)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32: return launch_bf16_long<32>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    case 64: return launch_bf16_long<64>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    case 128: return launch_bf16_long<128>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    case 256: return launch_bf16_long<256>(q, k, v, o, B, N, H, sb, sn, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

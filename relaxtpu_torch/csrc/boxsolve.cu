@@ -33,6 +33,19 @@
 // - the five box sums of a pixel stay in registers, the solve runs there
 //   with products rounded as the plain version rounds them, and only the
 //   two flow planes are written, a warp storing 512 contiguous bytes.
+//
+// Windows above 17 (box_blur_solve_pallas takes any odd winsize; the strip
+// kernel's halo holds a radius of at most 8) take a generic-radius pair of
+// kernels: a vertical clamped-row box sum of the five planes into a scratch
+// buffer the wrapper allocates, then a horizontal clamped-column sum fused
+// with the 1/winsize^2 scale and the 2x2 solve.  The radius is a run-time
+// value, so the taps are read from global memory through L1, each once per
+// thread, and added into a run of outputs held in registers (16 rows of a
+// column in the vertical pass, 4 columns of a row in the horizontal one),
+// in the plain version's tap order: the result is the plain version's to
+// the bit.  It moves
+// 68 bytes a pixel (M read, the scratch written and read, the flow
+// written) against the function's 28: simple and right first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -259,7 +272,97 @@ int launch(const float* m, float* flow, int P, int H, int W, float inv_area, boo
   return launch_tw<R, 128>(m, flow, P, H, W, inv_area, vec, stream);
 }
 
+// --------------------------------------------------------- generic radius
+constexpr int GX = 128;  // threads a block in both passes
+constexpr int GR = 16;   // output rows a thread in the vertical pass
+constexpr int GC = 4;    // output columns a thread in the horizontal pass
+
+// acc[i] = sum over d = 0 .. 2R of tap(i + d), in tap order, for the OUT
+// outputs of a run: each tap is loaded once and added to the outputs whose
+// window holds it.
+template <int OUT, typename Tap>
+__device__ __forceinline__ void run_sums(float (&acc)[OUT], int R, Tap tap) {
+#pragma unroll 2
+  for (int r = 0; r < OUT + 2 * R; ++r) {
+    const float val = tap(r);
+#pragma unroll
+    for (int i = 0; i < OUT; ++i) {
+      const int d = r - i;
+      if (d == 0)
+        acc[i] = val;
+      else if (d > 0 && d <= 2 * R)
+        acc[i] += val;
+    }
+  }
+}
+
+// vsum[pc, y, x] = sum over d = 0 .. 2R of m[pc, clamp(y - R + d), x]: block
+// (column strip, run of GR rows, plane of a pair), a thread a column
+__global__ void __launch_bounds__(GX)
+box_rows_kernel(const float* __restrict__ m, float* __restrict__ vsum, int H, int W, int R) {
+  const int x = blockIdx.x * GX + threadIdx.x;
+  if (x >= W) return;
+  const long long plane = (long long)blockIdx.z * H * W;
+  const float* const col = m + plane + x;
+  const int y0 = blockIdx.y * GR;
+  float acc[GR];
+  run_sums<GR>(acc, R, [&](int r) {
+    return __ldg(col + (long long)min(max(y0 - R + r, 0), H - 1) * W);
+  });
+#pragma unroll
+  for (int i = 0; i < GR; ++i)
+    if (y0 + i < H) vsum[plane + (long long)(y0 + i) * W + x] = acc[i];
+}
+
+// the horizontal sums of the five planes of GC pixels of row y, scaled,
+// and the solve: block (strip of GX * GC columns, row, pair)
+__global__ void __launch_bounds__(GX)
+box_cols_solve_kernel(const float* __restrict__ vsum, float* __restrict__ out, int H, int W,
+                      int R, float inv_area) {
+  const int x0 = (blockIdx.x * GX + threadIdx.x) * GC;
+  if (x0 >= W) return;
+  const int y = blockIdx.y, p = blockIdx.z;
+  const long long hw = (long long)H * W;
+  float b[5][GC];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    const float* const row = vsum + ((long long)p * 5 + c) * hw + (long long)y * W;
+    run_sums<GC>(b[c], R, [&](int r) { return __ldg(row + min(max(x0 - R + r, 0), W - 1)); });
+  }
+  float* const o = out + (long long)p * 2 * hw + (long long)y * W;
+#pragma unroll
+  for (int i = 0; i < GC; ++i) {
+    if (x0 + i >= W) break;
+    // the plain version's roundings, as in the strip kernel
+    const float g11 = __fmul_rn(b[0][i], inv_area), g12 = __fmul_rn(b[1][i], inv_area);
+    const float g22 = __fmul_rn(b[2][i], inv_area), h1 = __fmul_rn(b[3][i], inv_area);
+    const float h2 = __fmul_rn(b[4][i], inv_area);
+    const float idet = 1.0f / (__fmul_rn(g11, g22) - __fmul_rn(g12, g12) + 1e-3f);
+    o[x0 + i] = __fmul_rn(__fmul_rn(g11, h2) - __fmul_rn(g12, h1), idet);
+    o[hw + x0 + i] = __fmul_rn(__fmul_rn(g22, h1) - __fmul_rn(g12, h2), idet);
+  }
+}
+
 }  // namespace
+
+// m: (P, 5, H, W) f32, scratch: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32;
+// any odd winsize.
+extern "C" int relax_box_blur_solve_generic(const void* m, void* scratch, void* flow, int P,
+                                            int H, int W, int winsize, void* stream) {
+  if (winsize < 1 || winsize % 2 != 1 || 5LL * P > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int R = winsize / 2;
+  const float inv_area = (float)(1.0 / ((double)winsize * winsize));
+  cudaStream_t s = (cudaStream_t)stream;
+  box_rows_kernel<<<dim3((unsigned)((W + GX - 1) / GX), (unsigned)((H + GR - 1) / GR),
+                         (unsigned)(5 * P)), GX, 0, s>>>((const float*)m, (float*)scratch, H, W, R);
+  const int err = (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  box_cols_solve_kernel<<<dim3((unsigned)((W + GX * GC - 1) / (GX * GC)), (unsigned)H, (unsigned)P),
+                          GX, 0, s>>>(
+      (const float*)scratch, (float*)flow, H, W, R, inv_area);
+  return (int)cudaGetLastError();
+}
 
 // m: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32; winsize odd, at most 17.
 extern "C" int relax_box_blur_solve(const void* m, void* flow, int P, int H, int W,

@@ -7,11 +7,10 @@ LayerNorm eps 1e-6, exact GELU, final norm; the feature is the patch tokens
 through ``ops.attention.mha`` (kernel K3 on CUDA).
 
 An input other than 224x224 gets the position table resized bicubically
-(jax's Keys cubic, ``interpolate_pos_embed``).  K3 holds at most 256 tokens,
-so on CUDA an input of more than 255 patches raises; the JAX package's
-einsum attention has no such limit.  ``last_attention`` is the last
-block's attention matrix (``reduce="last_attn"`` of the JAX package), for
-the visualisation: the blocks before it run as in ``tokens``.
+(jax's Keys cubic, ``interpolate_pos_embed``); K3 takes any token count, as
+``fused_mha`` does.  ``last_attention`` is the last block's attention
+matrix (``reduce="last_attn"`` of the JAX package), for the visualisation:
+the blocks before it run as in ``tokens``.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from relaxtpu_torch.ops.attention import MAX_TOKENS, attention_probs, mha
+from relaxtpu_torch.ops.attention import attention_probs, mha
 from relaxtpu_torch.ops.resize import resize_hw
 
 
@@ -117,9 +116,6 @@ class ViT(nn.Module):
         to multiples of the patch size), CLS first, plus positions."""
         b, _, h, w = x.shape
         hp, wp = h // self.patch_size, w // self.patch_size
-        if x.device.type == "cuda" and hp * wp + 1 > MAX_TOKENS:
-            raise ValueError(f"{h}x{w} gives {hp * wp} patches: kernel K3 takes at most {MAX_TOKENS} "
-                             f"tokens ({MAX_TOKENS - 1} patches and the CLS token) on CUDA")
         y = self.patch_embed.proj(x).flatten(2).transpose(1, 2)  # row-major patches
         return torch.cat([self.cls_token.expand(b, -1, -1), y], dim=1) + self.interpolate_pos_embed(hp, wp)
 

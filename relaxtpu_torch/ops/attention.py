@@ -5,7 +5,10 @@ Counterpart of the Pallas kernel ``relaxtpu/ops/attention.py::_mha_kernel``
 ``relaxtpu/models/vit.py:60-64``: scores accumulated in f32, padded keys
 masked, softmax in f32, probabilities cast to the activation type, P.V
 accumulated in f32 and written in the activation type.  K3
-(``csrc/attention.cu``) keeps whole score rows on chip: tensor-core
+(``csrc/attention.cu``) has two pairs of entries: the short ones keep whole
+score rows on chip (N <= ``SHORT_TOKENS``, D in ``SHORT_HEAD_DIMS``); the
+long ones take any N in two passes over key tiles (an exact softmax, not
+online rescaling) at the head dims of ``LONG_HEAD_DIMS``.  Tensor-core
 ``mma.sync`` products in bf16, register-blocked FMAs in f32.
 
 ``mha`` launches K3 for CUDA tensors and runs the plain PyTorch version for
@@ -18,12 +21,16 @@ package computes outside any Pallas kernel (the visualisation path,
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from relaxtpu_torch import _native
 
-MAX_TOKENS = 256  # K3 keeps whole score rows on chip
-_HEAD_DIMS = (32, 64)
-_ENTRY = {torch.float32: "relax_mha_f32", torch.bfloat16: "relax_mha_bf16"}
+SHORT_TOKENS = 256  # the short entries keep whole score rows on chip
+SHORT_HEAD_DIMS = (32, 64)
+LONG_HEAD_DIMS = (32, 64, 128, 256)  # the long entries' compiled head dims
+MAX_HEAD_DIM = LONG_HEAD_DIMS[-1]
+_SHORT = {torch.float32: "relax_mha_f32", torch.bfloat16: "relax_mha_bf16"}
+_LONG = {torch.float32: "relax_mha_f32_long", torch.bfloat16: "relax_mha_bf16_long"}
 
 
 def attention_probs(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -39,37 +46,77 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Attention over (B, N, H, D) -> (B, N, H, D) contiguous.
+def _plan(n: int, d: int, dtype: torch.dtype) -> tuple[str, int]:
+    """(the K3 entry, the head dim it runs at) for N tokens of head dim D:
+    the short entry where it takes (N, D), else the long one at the
+    smallest compiled head dim >= D (the wrapper pads q, k and v with zeros,
+    which leaves every score and the first D output dims exact)."""
+    if dtype not in _SHORT:
+        raise ValueError(f"K3 takes f32 or bf16, got {dtype}")
+    if n < 1:
+        raise ValueError(f"K3 takes N >= 1 tokens, got N={n}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"K3 takes head dims 1 <= D <= MAX_HEAD_DIM = {MAX_HEAD_DIM}, got D={d}")
+    if n <= SHORT_TOKENS and d in SHORT_HEAD_DIMS:
+        return _SHORT[dtype], d
+    return _LONG[dtype], next(x for x in LONG_HEAD_DIMS if x >= d)
 
-    On CUDA, q, k and v must share their strides, with (H, D) dense and
-    every token row 16-byte aligned (K3 stages rows with 16-byte copies):
-    the column slices of one packed qkv projection qualify, as do
-    contiguous tensors.  CPU tensors take the plain version.
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every token row 16-byte aligned: K3 stages rows by 16-byte copies."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and (t.stride(0) * size) % 16 == 0 and (t.stride(1) * size) % 16 == 0
+
+
+def _staged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dp: int) -> tuple:
+    """q, k and v in a layout K3 stages at head dim ``dp``: as they are when
+    they share their strides, with (H, D) dense and aligned token rows (the
+    column slices of one packed qkv projection qualify, as do contiguous
+    tensors); zero-padded along D to ``dp``; else contiguous copies."""
+    d = q.shape[-1]
+    if dp != d:
+        return tuple(F.pad(t, (0, dp - d)) for t in (q, k, v))
+    if (k.stride() == v.stride() == q.stride() and q.stride(3) == 1 and q.stride(2) == d
+            and all(_rows_aligned(t) for t in (q, k, v))):
+        return q, k, v
+    return tuple(t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, entry: str) -> torch.Tensor:
+    """One launch of a K3 entry on staged (B, N, H, D) q, k, v -> contiguous o."""
+    b, n, h, d = q.shape
+    o = q.new_empty((b, n, h, d))  # new_empty skips torch.empty's argument parsing on this hot path
+    _native.launch(
+        entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        b, n, h, d, q.stride(0), q.stride(1), float(scale),
+    )
+    mha.launches += 1
+    if entry in _LONG.values():
+        mha.long_launches += 1
+    return o
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Attention over (B, N, H, D) -> (B, N, H, D) contiguous, any N >= 1 and
+    1 <= D <= ``MAX_HEAD_DIM``.
+
+    On CUDA, q, k and v must be f32 or bf16 tensors of one type and shape;
+    a layout K3 cannot stage is copied first (``_staged``).  CPU tensors
+    take the plain version.  ``launches`` counts every K3 launch,
+    ``long_launches`` those of the long entries.
     """
     if q.device.type == "cpu":
         return mha_plain(q, k, v, scale)
     b, n, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.dtype not in _ENTRY or t.dtype != q.dtype:
+        if t.device.type != "cuda" or t.dtype not in _SHORT or t.dtype != q.dtype:
             raise ValueError(f"{name} must be a CUDA f32 or bf16 tensor like q, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != (b, n, h, d) or t.stride() != q.stride():
-            raise ValueError(f"{name} must match q's shape {tuple(q.shape)} and strides {q.stride()}")
-    if q.stride(3) != 1 or q.stride(2) != d:
-        raise ValueError(f"the (H, D) axes must be dense, got strides {q.stride()}")
-    if not 1 <= n <= MAX_TOKENS or d not in _HEAD_DIMS:
-        raise ValueError(f"K3 takes 1 <= N <= {MAX_TOKENS} and D in {_HEAD_DIMS}, got N={n}, D={d}")
-    size = q.element_size()
-    if any(t.data_ptr() % 16 for t in (q, k, v)) or (q.stride(0) * size) % 16 or (q.stride(1) * size) % 16:
-        raise ValueError(f"K3 needs 16-byte aligned token rows: pointers and the B and N strides "
-                         f"in bytes multiples of 16, got strides {q.stride()}")
-    o = q.new_empty((b, n, h, d))  # new_empty skips torch.empty's argument parsing on this hot path
-    _native.launch(
-        _ENTRY[q.dtype], q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, n, h, d, q.stride(0), q.stride(1), float(scale),
-    )
-    mha.launches += 1
-    return o
+        if tuple(t.shape) != (b, n, h, d):
+            raise ValueError(f"{name} must match q's shape {tuple(q.shape)}, got {tuple(t.shape)}")
+    entry, dp = _plan(n, d, q.dtype)
+    o = _launch(*_staged(q, k, v, dp), scale, entry)
+    return o if dp == d else o[..., :d].contiguous()
 
 
 mha.launches = 0
+mha.long_launches = 0

@@ -4,9 +4,12 @@ Counterpart of the Pallas kernel ``relaxtpu/ops/boxsolve.py::_box_solve_kernel``
 which computes ``relaxtpu/ops/flow.py::_update_flow`` (``flow.py:318-337``):
 a winsize x winsize replicate-border box sum of the five normal-equation
 planes, times 1/winsize^2, then the per-pixel 2x2 solve.  K2
-(``csrc/boxsolve.cu``) forms the direct sums from registers, in the plain
-version's tap order, and writes only the two flow planes.  It takes an odd
-winsize up to ``MAX_WINSIZE``.
+(``csrc/boxsolve.cu``) forms the direct sums in the plain version's tap
+order and writes only the two flow planes.  Like the Pallas kernel it takes
+any odd winsize: up to ``STRIP_WINSIZE`` the strip kernel (its halo span
+holds a radius of at most 8), above it the generic-radius pair of kernels
+(a vertical box sum into a scratch buffer, then the horizontal sum fused
+with the solve).
 
 ``box_blur_solve`` launches K2 for CUDA tensors and runs the plain PyTorch
 version for CPU tensors: M (P, 5, H, W) f32 -> flow (P, 2, H, W) f32.
@@ -19,7 +22,14 @@ import torch.nn.functional as F
 
 from relaxtpu_torch import _native
 
-MAX_WINSIZE = 17  # K2's halo span holds a radius of at most 8
+STRIP_WINSIZE = 17  # the strip kernel's halo span holds a radius of at most 8
+_STRIP, _GENERIC = "relax_box_blur_solve", "relax_box_blur_solve_generic"
+
+
+def _entry(winsize: int) -> str:
+    """The K2 entry that runs a window: the strip kernel up to
+    ``STRIP_WINSIZE``, the generic-radius kernels above it."""
+    return _STRIP if winsize <= STRIP_WINSIZE else _GENERIC
 
 
 def box_sum_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
@@ -48,22 +58,28 @@ def box_blur_solve_plain(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
 def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
     """Box-averaged 2x2 solve -> new flow (P, 2, H, W).
 
-    CUDA tensors launch K2; CPU tensors take the plain version.
+    CUDA tensors launch K2 (``launches`` counts every call that does,
+    ``generic_launches`` those above ``STRIP_WINSIZE``); CPU tensors take
+    the plain version.
     """
-    if winsize % 2 != 1:
-        raise ValueError("box window must be odd")
+    if winsize < 1 or winsize % 2 != 1:
+        raise ValueError(f"box window must be odd and positive, got {winsize}")
     if m.device.type == "cpu":
         return box_blur_solve_plain(m, winsize)
-    if winsize > MAX_WINSIZE:
-        raise ValueError(f"K2 takes an odd winsize <= {MAX_WINSIZE}, got {winsize}")
     _native.check_cuda_input(m, "m", torch.float32, 4)
     p, c, h, w = m.shape
     if c != 5:
         raise ValueError(f"M must be the 5 normal-equation planes, got shape {tuple(m.shape)}")
     flow = m.new_empty((p, 2, h, w))  # new_empty skips torch.empty's argument parsing on this hot path
-    _native.launch("relax_box_blur_solve", m.device, m.data_ptr(), flow.data_ptr(), p, h, w, winsize)
+    if _entry(winsize) == _STRIP:
+        _native.launch(_STRIP, m.device, m.data_ptr(), flow.data_ptr(), p, h, w, winsize)
+    else:
+        scratch = torch.empty_like(m)  # the vertical sums
+        _native.launch(_GENERIC, m.device, m.data_ptr(), scratch.data_ptr(), flow.data_ptr(), p, h, w, winsize)
+        box_blur_solve.generic_launches += 1
     box_blur_solve.launches += 1
     return flow
 
 
 box_blur_solve.launches = 0
+box_blur_solve.generic_launches = 0

@@ -139,7 +139,9 @@ def farneback_flow(
 ) -> torch.Tensor:
     """Dense flow (P, H, W, 2) f32 from (P, H, W) gray images (uint8 or f32).
 
-    The warp is exact for any flow (``warp="exact"`` of the JAX package).
+    The warp is exact for any flow (``warp="exact"`` of the JAX package);
+    ``winsize`` is any odd box window (K2's strip kernel up to 17, its
+    generic-radius kernels above).
     """
     p, h, w = prev_gray.shape
     # (2, P, H, W): image-major, so each image's expansion is a contiguous

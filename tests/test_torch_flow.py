@@ -4,12 +4,17 @@
   ``_update_matrices(..., "exact")``; its warp against ``_warp_exact`` and,
   for in-band flow, the Pallas banded warp in interpret mode.
 - K2's plain version against ``box_blur_solve_pallas(..., interpret=True)``
-  and ``_update_flow``, including non-tile shapes.
+  and ``_update_flow``, including non-tile shapes and windows past the strip
+  kernel's largest (19, 21, 31), which the generic-radius kernel takes on
+  the card; K2's routing between its two kernels.
 - The whole flow against ``farneback_flow(warp="exact")`` on a textured
   (dx=2, dy=1) pan, seed 5.  Measured on the CPU in f32: at 120x160 mean
   error 2.4e-7 px and interior (16 px in) max 2.9e-6 px; at 540x960 mean
   3.2e-7 px, interior max 6.0e-6 px.  Bounds: mean 1e-5 px, interior max
-  5e-4 px, 100x inside the 0.05 px cv2 tolerance of tests/test_flow.py.
+  5e-4 px, 100x inside the 0.05 px cv2 tolerance of tests/test_flow.py;
+  the same bounds at winsize 21 (measured at 120x160: mean 2.3e-7 px,
+  interior max 2.1e-6 px).  K2 at windows 19, 21 and 31 on 67x131: within
+  7.8e-7 of both JAX forms (bound 1e-4).
 """
 
 import jax
@@ -22,7 +27,8 @@ from relaxtpu.ops.boxsolve import box_blur_solve_pallas
 from relaxtpu.ops.flow import _poly_expansion, _update_flow, _update_matrices, _warp_exact
 from relaxtpu.ops.flow import farneback_flow as jax_flow
 from relaxtpu.ops.warp import warp_planes_banded_pallas
-from relaxtpu_torch.ops.boxsolve import MAX_WINSIZE, box_blur_solve
+from relaxtpu_torch.ops import boxsolve
+from relaxtpu_torch.ops.boxsolve import STRIP_WINSIZE, box_blur_solve
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, warp_planes_plain
 
@@ -103,13 +109,36 @@ def test_box_blur_solve_plain_matches_pallas_and_xla(rng, h, w):
     assert box_blur_solve.launches == 0
 
 
+@pytest.mark.parametrize("winsize", [19, 21, 31])
+def test_box_blur_solve_plain_matches_pallas_and_xla_wide_windows(rng, winsize):
+    """Windows past the strip kernel's largest; at 31 the window spans
+    more than a fifth of the image's 67 rows."""
+    m = realistic_m(rng, 2, 67, 131)
+    got = box_blur_solve(T(m), winsize).numpy()
+    with jax.default_device(jax.devices("cpu")[0]):
+        pallas = np.asarray(box_blur_solve_pallas(jnp.asarray(m), winsize, interpret=True))
+    xla = np.stack([np.asarray(_update_flow(jnp.asarray(m[i]), winsize)) for i in range(2)])
+    np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, xla, rtol=1e-4, atol=1e-4)
+
+
 def test_box_blur_solve_refuses_a_window_past_the_kernels_largest():
-    """Off the CPU, windows above K2's largest raise before any launch (a
-    meta tensor stands in for a CUDA one); the plain version takes any."""
-    with pytest.raises(ValueError, match=f"winsize <= {MAX_WINSIZE}"):
-        box_blur_solve(torch.empty((1, 5, 8, 8), device="meta"), MAX_WINSIZE + 2)
+    """The strip kernel is never handed a window past its largest
+    (``STRIP_WINSIZE``): those go to the generic-radius kernel, which takes
+    any odd window, as the Pallas kernel does.  An even window is refused
+    before any launch (a meta tensor stands in for a CUDA one); the plain
+    version takes any odd window."""
+    assert STRIP_WINSIZE == 17
+    for winsize in (1, 5, 15, 17):
+        assert boxsolve._entry(winsize) == "relax_box_blur_solve"
+    for winsize in (19, 21, 31, 63, 101):
+        assert boxsolve._entry(winsize) == "relax_box_blur_solve_generic"
+    for winsize in (16, 0, -3):
+        with pytest.raises(ValueError, match="odd and positive"):
+            box_blur_solve(torch.empty((1, 5, 8, 8), device="meta"), winsize)
     m = torch.rand((1, 5, 8, 8), generator=torch.Generator().manual_seed(0))
-    assert box_blur_solve(m, MAX_WINSIZE + 2).shape == (1, 2, 8, 8)
+    assert box_blur_solve(m, STRIP_WINSIZE + 2).shape == (1, 2, 8, 8)
+    assert box_blur_solve.launches == box_blur_solve.generic_launches == 0
 
 
 def textured(rng, h, w, sigma=3.0):
@@ -126,12 +155,12 @@ def shifted_pairs(rng, n, h, w, dx, dy):
     return np.stack(prev), np.stack(nxt)
 
 
-def assert_flow_close(n, h, w):
+def assert_flow_close(n, h, w, winsize=15):
     prev, nxt = shifted_pairs(np.random.default_rng(5), n, h, w, dx=2, dy=1)
-    got = farneback_flow(T(prev), T(nxt)).numpy()
+    got = farneback_flow(T(prev), T(nxt), winsize=winsize).numpy()
     assert got.shape == (n, h, w, 2)
     for i in range(n):
-        want = np.asarray(jax_flow(jnp.asarray(prev[i]), jnp.asarray(nxt[i]), warp="exact"))
+        want = np.asarray(jax_flow(jnp.asarray(prev[i]), jnp.asarray(nxt[i]), winsize=winsize, warp="exact"))
         err = np.abs(got[i] - want)
         assert err.mean() <= 1e-5, err.mean()
         assert err[16:-16, 16:-16].max() <= 5e-4, err[16:-16, 16:-16].max()
@@ -139,6 +168,10 @@ def assert_flow_close(n, h, w):
 
 def test_farneback_flow_matches_jax_exact():
     assert_flow_close(2, 120, 160)
+
+
+def test_farneback_flow_matches_jax_exact_winsize_21():
+    assert_flow_close(1, 120, 160, winsize=21)
 
 
 @pytest.mark.slow

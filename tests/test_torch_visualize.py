@@ -9,8 +9,9 @@ same numpy inputs and weights (CPU, f32).
   14 -> 16), within 2.5e-6 of the input's largest magnitude (measured
   1.98e-6 at 14x14 -> 14x16, 1.58e-6 at 16x16, 1.8e-7 to 5.0e-7 at the
   others): a bound of 1e-6 would sit below that rounding.
-- The depth-2 ViT's patch tokens at 224x224, 160x192 and 256x256: within
-  1e-5 of the largest token magnitude (measured 8.5e-7 to 9.1e-7); the
+- The depth-2 ViT's patch tokens at 224x224, 160x192, 256x256 and 384x384
+  (577 tokens; JAX's ViT there through ``fused_mha`` in interpret mode):
+  within 1e-5 of the largest token magnitude (measured 8.5e-7 to 9.1e-7); the
   last block's attention matrix against
   ``relaxtpu.visualize.last_selfattention``: within 1e-5 (measured 1.1e-8).
 - ``visualize`` through both CLIs on the same PNGs (a 224x320 pair, depth-2
@@ -105,11 +106,14 @@ def test_cubic_weights_equal_jax(n_in, out):
     assert np.abs(got.numpy() - want).max() <= 2.5e-6 * np.abs(x).max()
 
 
-@pytest.mark.parametrize("hw", [(224, 224), (160, 192), (256, 256)])
+@pytest.mark.parametrize("hw", [(224, 224), (160, 192), (256, 256), (384, 384)])
 def test_vit_tokens_equal_jax(vits, hw):
-    """224x224 keeps the position table; 160x192 (10 x 12 patches) and
-    256x256 (16 x 16) resize it bicubically."""
+    """224x224 keeps the position table; 160x192 (10 x 12 patches), 256x256
+    (16 x 16) and 384x384 (24 x 24) resize it bicubically.  At 384x384 (577
+    tokens, past K3's short entries) JAX's ViT runs its Pallas attention."""
     tvit, jvit, jvars = vits
+    if hw == (384, 384):
+        jvit = JaxViT(depth=DEPTH, fused_attention=True)
     x = np.random.default_rng(sum(hw)).uniform(0, 1, (2, *hw, 3)).astype(np.float32)
     want = np.asarray(jvit.apply(jvars, jnp.asarray(x), reduce=None))
     with torch.inference_mode():
