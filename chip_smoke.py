@@ -8,8 +8,9 @@ Phases (any failed check raises, so the exit code is not 0):
 2. build the CUDA kernels from ``relaxtpu_torch/csrc`` and time the build;
    print each kernel function's registers and spills (ptxas) and the count
    of tensor-core instructions in each K3 function's SASS (cuobjdump),
-   failing if a bf16 K3 function (short or long) has none, or if the long
-   K3 or the generic-radius K2 functions are missing;
+   failing if a bf16 K3 function (short or long) has none, if the long K3
+   (the ring kernel at D 32 and 64 among them) or the generic-radius K2
+   functions are missing, or if the ring kernel spills;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (matrix update) and K2 (box blur + solve) at the four 540p and the four
    1080p pyramid levels with 16 pairs, at the 4K finest level (2160x3840)
@@ -20,8 +21,10 @@ Phases (any failed check raises, so the exit code is not 0):
    launching the strip kernel then the generic one; K3 (attention) at
    (48, 197, 12, 64) and at N in {1, 17, 64, 197, 208, 256} x D in {32, 64}
    (the short entries) and N in {257, 300, 577, 1025} x D in {32, 64, 80,
-   128, 256} (the long entries), in f32 and bf16, contiguous and as
-   packed-qkv slices, each call launching the entry ``_plan`` names; the
+   128, 256} and N in {383, 384, 385, 640, 641} x D in {32, 64} (the long
+   entries; the last set straddles the bf16 ring kernel's 128-query blocks
+   and 64-key tiles), in f32 and bf16, contiguous and as packed-qkv slices,
+   each call launching the entry ``_plan`` names; the
    long entry called directly at N = 197 and 256 against the short one;
    every input sits at the start of a NaN-filled allocation; then the
    flow's live f32 planes a pair at 1080p (``max_memory_allocated`` around
@@ -188,7 +191,8 @@ Phases (any failed check raises, so the exit code is not 0):
    (d) where PIL imports, ``parity --check all`` with no blobs: ``ran`` 2
        (features and production), ``ok``, head and demo skipped with
        their missing flags named;
-12. print the ``kernels`` JSON line, the card line and the final status line.
+12. print the seconds of each phase (phases 3 and 5-11 also by step), the
+   ``kernels`` JSON line, the card line and the final status line.
 
 Exits with 1 and prints no result when CUDA is not available.  Details go
 to ``build/chip_smoke/chip_smoke.json``.
@@ -271,6 +275,7 @@ H_HI, W_HI, FRAMES_HI = 1080, 1920, 40  # -> 20 frames, 20 pairs
 COS_BOUND = {"f32": 0.99999, "bf16": 0.9999}
 K1_FLOPS_PER_PX = 80    # corner weights, 5-plane gather, averaging, flow terms, taper, products
 LONG_ATTN_SHAPE = (FRAMES + 2 * PAIRS, 577, 12, 64)  # ViT-B/16 at 384x384
+RING_EDGES = (383, 384, 385, 640, 641)  # about 3 query blocks of 128 and 10 key tiles of 64
 WIDE_WINDOWS = (19, 21, 31, 63)  # K2 past the strip kernel's largest window
 WIDE_WINSIZE = 21                # the slice's flow window
 
@@ -351,6 +356,23 @@ def nan_padded(t: torch.Tensor, extra: int = 4096) -> torch.Tensor:
     return buf[: t.numel()].view(t.shape)
 
 
+class Laps:
+    """Host seconds by step: ``lap(step)`` closes the step that ran since the
+    previous lap (or since the Laps was made); a step lapped again adds up."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, step: str) -> None:
+        now = time.perf_counter()
+        self.seconds[step] = self.seconds.get(step, 0.0) + now - self._t
+        self._t = now
+
+    def show(self, what: str) -> None:
+        print(f"  {what} seconds by step: { {k: round(v, 1) for k, v in self.seconds.items()} }")
+
+
 # ------------------------------------------------------------------ phase 2
 def report_build(so: str) -> dict:
     """ptxas's registers and spills for every kernel function, and the count
@@ -378,15 +400,18 @@ def report_build(so: str) -> dict:
         elif name and "mha" in name and re.search(r"\bHG?MMA\b", line):
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
-        kernel = re.search(r"(update_matrices|box_blur_solve|box_rows|box_cols_solve|mha_bf16(_long)?"
+        kernel = re.search(r"(update_matrices|box_blur_solve|box_rows|box_cols_solve|mha_bf16(_long|_ring)?"
                            r"|mha_f32(_long)?)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
         mma = f"; {f['tensor_core_instructions']} HMMA/HGMMA" if "mha" in name else ""
         print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
-    if not any("mha_bf16_long" in n for n in funcs) or not any("box_rows" in n for n in funcs):
+    if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "box_rows")):
         raise AssertionError("the long K3 or the generic-radius K2 functions are missing from the build")
+    ring = {n: f for n, f in funcs.items() if "mha_bf16_ring" in n}
+    if any("0 bytes spill stores" not in f.get("spill", "") for f in ring.values()):
+        raise AssertionError(f"the long bf16 ring kernel spills: {ring}")
     if not bf16_mha or not all(f.get("tensor_core_instructions") for f in bf16_mha):
         raise AssertionError("a bf16 K3 function has no tensor-core instructions in its SASS")
     return funcs
@@ -450,13 +475,15 @@ def check_attention_kernel(gen: torch.Generator) -> dict:
     """K3 in f32 and bf16 at the ViT shape and at N in {1, 17, 64, 197, 208,
     256} x D in {32, 64} (the short entries), and at N in {257, 300, 577,
     1025} x D in {32, 64, 80, 128, 256} (the long entries; D = 80 padded to
-    128), on contiguous NaN-padded inputs and on column slices of a
-    NaN-padded packed qkv tensor, each call launching the entry ``_plan``
-    names; then the long entry called directly at N = 197 and 256 against
-    the short one."""
+    128) and N in ``RING_EDGES`` x D in {32, 64} (the edges of the long bf16
+    ring kernel's 128-query blocks and 64-key tiles), on contiguous
+    NaN-padded inputs and on column slices of a NaN-padded packed qkv
+    tensor, each call launching the entry ``_plan`` names; then the long
+    entry called directly at N = 197 and 256 against the short one."""
     short = [ATTN_SHAPE] + [(2, n, 3, d) for n in (1, 17, 64, 197, 208, 256) for d in (32, 64)]
     long = [(2, n, 3, d) for n in (257, 300, 577, 1025) for d in (32, 64, 80, 128, 256)]
-    worst = {}
+    long += [(2, n, 3, d) for n in RING_EDGES for d in (32, 64)]
+    worst = {"K3_long_bf16_ring": 0.0}  # the long bf16 entry at D 32 and 64: the ring kernel
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         worst[f"K3_{tag}"] = worst[f"K3_long_{tag}"] = 0.0
         for b, n, h, d in short + long:
@@ -473,11 +500,15 @@ def check_attention_kernel(gen: torch.Generator) -> dict:
             err2, rel2 = rel_err(mha(qs, ks, vs, scale), want)
             check(f"K3 {tag} {(b, n, h, d)} packed-qkv slices", rel2, TOL[f"K3_{tag}"], verbose=key == f"K3_{tag}")
             worst[key] = max(worst[key], err, err2)
+            if key == "K3_long_bf16" and d in attention_mod.SHORT_HEAD_DIMS:
+                worst["K3_long_bf16_ring"] = max(worst["K3_long_bf16_ring"], err, err2)
             entry, _ = attention_mod._plan(n, d, dtype)
             if mha.long_launches - n0 != (2 if entry == attention_mod._LONG[dtype] else 0):
                 raise AssertionError(f"K3 {tag} {(b, n, h, d)}: not the entry _plan names ({entry})")
-        print(f"  K3 {tag} long entries at N in (257, 300, 577, 1025) x D in (32, 64, 80, 128, 256): largest "
-              f"|kernel - plain| {worst[f'K3_long_{tag}']:.3e}, every call within {TOL[f'K3_{tag}']:.0e} of max |plain|")
+        print(f"  K3 {tag} long entries at N in (257, 300, 577, 1025) x D in (32, 64, 80, 128, 256) and N in "
+              f"{RING_EDGES} x D in (32, 64): largest |kernel - plain| {worst[f'K3_long_{tag}']:.3e}"
+              + (f" (the ring kernel, D 32 and 64: {worst['K3_long_bf16_ring']:.3e})" if tag == "bf16" else "")
+              + f", every call within {TOL[f'K3_{tag}']:.0e} of max |plain|")
         for n in (197, 256):
             for d in (32, 64):
                 q, k, v = (nan_padded(torch.randn((2, n, 3, d), generator=gen, device="cuda").to(dtype))
@@ -736,6 +767,7 @@ def check_wide_flow() -> dict:
 
 
 def run_main_path() -> dict:
+    lap = Laps()
     os.makedirs(WORK_DIR, exist_ok=True)
     clip = os.path.join(WORK_DIR, "clip540p.yuv")
     bgr_to_i420(synthetic_bgr(32, H, W, seed=7)).tofile(clip)
@@ -745,13 +777,15 @@ def run_main_path() -> dict:
     fbuf, nbuf, h, w = decode_video_inputs_i420(clip, 4.0, W, H)
     if (len(fbuf), len(nbuf)) != (FRAMES, PAIRS):
         raise AssertionError(f"expected {FRAMES} frames and {PAIRS} pairs, got {len(fbuf)}, {len(nbuf)}")
-    out = {}
+    out = {"seconds": lap.seconds}
+    lap("clip and weights")
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         fx = FeatureExtractor(rs, vs, dtype=dtype, vit_depth=12, device="cuda")
         pred = VideoQualityPredictor(fx, mlp_state, scaler)
         reset_counts()
         mos = pred.predict_file(clip, framerate=4.0, width=W, height=H)
         n = counts()
+        lap(f"{tag} first video")
         print(f"  {tag}: MOS {mos!r}, launches per video {n}")
         if not math.isfinite(mos):
             raise AssertionError(f"{tag} MOS is not finite: {mos}")
@@ -772,16 +806,20 @@ def run_main_path() -> dict:
         vec = fx.video_feature_i420(fbuf, nbuf, h, w)
         if vec.shape != (35203,) or not np.isfinite(vec).all():
             raise AssertionError(f"{tag} vector is not 35,203 finite values")
+        lap(f"{tag} warm videos")
         calls = record_kernel_inputs(lambda: pred.predict_file(clip, framerate=4.0, width=W, height=H))
         kernels = time_on_main_path_inputs(calls, tag)
+        lap(f"{tag} kernels on the recorded inputs")
         out[tag] = {
             "mos": mos, "launches": n, "warm_ms_median": statistics.median(times),
             "warm_ms": times, "max_memory_allocated": peak, "kernels": kernels, "vec": vec,
         }
         if tag == "bf16":
             out[tag]["k2_generic"] = time_k2_generic(calls["K2"])
+            lap("bf16 generic K2 on the recorded inputs")
         del fx, pred, kernels, calls
         torch.cuda.empty_cache()
+    lap.show("phase 5")
     vec_f32 = out["f32"].pop("vec")
     cos = segment_cosines(out["bf16"].pop("vec"), vec_f32)
     out["bf16_vs_f32_cosine"] = cos
@@ -968,6 +1006,7 @@ def make_clip(name: str, n: int, h: int, w: int, seed: int) -> str:
 
 def run_serving() -> tuple[dict, list]:
     """Phase 6 -> its record and the four clips' bf16 streamed vectors."""
+    lap = Laps()
     rs, vs = seeded_states(vit_depth=12)
     mlp_state = random_init_(Mlp(), 2).state_dict()
     scaler = FeatureScaler(fill=np.zeros(1), scale=np.ones(1), offset=np.zeros(1))
@@ -981,12 +1020,14 @@ def run_serving() -> tuple[dict, list]:
         raise AssertionError(f"1080p clip: expected {FRAMES_HI // 2} frames and pairs")
     total_pairs = sum(p for _, p in SERVE_COUNTS)
     n_images = sum(f + 2 * p for f, p in SERVE_COUNTS)
-    out = {}
+    out = {"seconds": lap.seconds}
+    lap("clips and weights")
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         fx = FeatureExtractor(rs, vs, dtype=dtype, vit_depth=12, device="cuda")
         pred = VideoQualityPredictor(fx, mlp_state, scaler)
         r = out[tag] = {"backbone_peak_172": backbone_peak(fx, n_images)}
         single = [fx.video_feature_i420(f, n, h, w) for f, n, h, w in decoded]
+        lap(f"{tag} backbone peak and single vectors")
         chunk = fx.max_pair_batch(H, W)
         batch_args = ([d[0] for d in decoded], [d[1] for d in decoded], H, W)
 
@@ -1000,6 +1041,7 @@ def run_serving() -> tuple[dict, list]:
             f"{tag} batched", {"K1": 12 * -(-total_pairs // chunk), "K2": 12 * -(-total_pairs // chunk), "K3": 12})
         r["batched_vs_single"] = [check_cosines(f"{tag} batched video {i} vs single", v, s, COS_BOUND[tag])
                                   for i, (v, s) in enumerate(zip(vecs, single))]
+        lap(f"{tag} a")
 
         print(f"  ({tag}) (b) streaming through enqueue_file, 2 in flight")
         reset_counts()
@@ -1009,6 +1051,7 @@ def run_serving() -> tuple[dict, list]:
         r["stream_launches"] = check_counts(f"{tag} streaming", {k: 12 * len(clips) for k in ("K1", "K2", "K3")})
         r["stream_vs_single"] = [check_cosines(f"{tag} streamed video {i} vs single", v, s, 0.99999)
                                  for i, (v, s) in enumerate(zip(streamed, single))]
+        lap(f"{tag} b")
 
         print(f"  ({tag}) (c) 1080x1920, {len(nbuf_hi)} pairs: chunked path against unchunked")
         chunk_hi = fx.max_pair_batch(H_HI, W_HI)
@@ -1028,6 +1071,7 @@ def run_serving() -> tuple[dict, list]:
         r["unchunked_launches"] = check_counts(f"{tag} 1080p unchunked", {"K1": 12, "K2": 12, "K3": 12})
         r["chunked_vs_unchunked"] = check_cosines(f"{tag} 1080p chunked vs unchunked", vec_hi, vec_whole,
                                                   COS_BOUND[tag])
+        lap(f"{tag} c")
 
         if tag == "bf16":
             print(f"  ({tag}) (d) serve loop: two clips and a bad line")
@@ -1043,6 +1087,7 @@ def run_serving() -> tuple[dict, list]:
                     or lines[3]["video"] is not None or "error" not in lines[3]):
                 raise AssertionError(f"serve loop answered {lines}")
             r["serve"] = lines
+            lap(f"{tag} d")
 
             print(f"  ({tag}) warm ms per video: one after the other, streamed (2 in flight), batched by 4")
             modes = {
@@ -1062,10 +1107,12 @@ def run_serving() -> tuple[dict, list]:
                     mode, len(clips))
                 print(f"  {mode}: {t['ms_median'] / per:.2f} ms per video (runs {t['ms']} for {per}), "
                       f"busy share {t['busy_share']}, max_memory_allocated {t['max_memory_allocated']}")
+            lap(f"{tag} warm timing")
             r["stages"] = {}
             for mode in ("sequential", "batched", "1080p_chunked"):
                 print(f"  ({tag}) where the device time goes: {mode}")
                 r["stages"][mode] = stage_breakdown(fx, modes[mode])
+            lap(f"{tag} stage breakdown")
 
         print(f"  ({tag}) kernels on the serving shapes")
         r["kernels"] = {
@@ -1075,8 +1122,10 @@ def run_serving() -> tuple[dict, list]:
                 record_kernel_inputs(lambda: fx.video_feature_async_i420(fbuf_hi, nbuf_hi, H_HI, W_HI)),
                 tag, "1080p", False),
         }
+        lap(f"{tag} kernels on the serving shapes")
         del fx, pred
         torch.cuda.empty_cache()
+    lap.show("phase 6")
     return out, streamed_bf16
 
 
@@ -1354,10 +1403,11 @@ def cuda_vs_cpu_training(meta: dict, x: np.ndarray) -> dict:
 
 
 def run_training(vec540: np.ndarray) -> dict:
+    lap = Laps()
     os.makedirs(TRAIN_DIR, exist_ok=True)
     p = lambda name: os.path.join(TRAIN_DIR, name)  # noqa: E731
     reset_counts()
-    out = {"host_ram_bytes": host_ram_bytes()}
+    out = {"host_ram_bytes": host_ram_bytes(), "seconds": lap.seconds}
 
     print(f"  data: KoNViD-1k shape {KONVID_N} x {FEAT_D}, LSVQ shape {LSVQ_TRAIN_N} + {LSVQ_TEST_N}")
     t0 = time.perf_counter()
@@ -1391,6 +1441,7 @@ def run_training(vec540: np.ndarray) -> dict:
     del x_t
     out["data_s"] = time.perf_counter() - t0
     print(f"  data made and written in {out['data_s']:.1f} s")
+    lap("data")
 
     print("  (a) train, KoNViD-1k shape, default TrainConfig, 2 repeats")
     medians = []
@@ -1428,10 +1479,12 @@ def run_training(vec540: np.ndarray) -> dict:
           f"phase 5's 540p vector -> MOS {mos!r}")
     if not reload_err <= 1e-5 or not math.isfinite(mos):
         raise AssertionError(f"(a) reloaded head: difference {reload_err}, MOS {mos}")
+    lap("a")
 
     print("  (b) CUDA against CPU, first fold of (a), 2 epochs, dropout 0, SWA off, (a)'s and (c)'s heads")
     out["b"] = cuda_vs_cpu_training(meta_a, x_a)
     del x_a
+    lap("b")
 
     print(f"  (c) train-lsvq, {n_tr} train x {LSVQ_TEST_N} test, k-fold off, no BN, lr 1e-2, bykrcc, 20 epochs")
     out["c"] = run_cli(["train-lsvq", "--train-metadata", p("lsvq_train.csv"), "--test-metadata",
@@ -1442,6 +1495,7 @@ def run_training(vec540: np.ndarray) -> dict:
     print(f"  (c) host peak RSS {out['c']['host_peak_rss_bytes']} B of {out['host_ram_bytes']}")
     if not all(math.isfinite(v) for k, v in out["c"]["result"].items() if k != "model"):
         raise AssertionError(f"(c) metrics not finite: {out['c']['result']}")
+    lap("c")
 
     argv = ["finetune", "--dataset", "konvid_1k", "--metadata-csv", p("konvid.csv"), "--features",
             p("konvid_scaled.npy"), "--base-model", p("lsvq_head.npz"), "--no-bn", "--n-repeats", "2",
@@ -1453,8 +1507,10 @@ def run_training(vec540: np.ndarray) -> dict:
         if not all(math.isfinite(v) for v in out[key]["result"].values() if isinstance(v, float)):
             raise AssertionError(f"({key}) metrics not finite: {out[key]['result']}")
 
+    lap("d")
     print("  step time at full width (BN, SGD, dropout 0.1)")
     out["step"] = head_step_time(train_mod.MlpTrainer(train_mod.TrainConfig(), FEAT_D, TRAIN_DEVICE))
+    lap("step time")
     n = counts()
     print(f"  launches of K1, K2, K3 during training: {n} (expected none)")
     if any(n.values()):
@@ -1462,6 +1518,7 @@ def run_training(vec540: np.ndarray) -> dict:
     for name in os.listdir(TRAIN_DIR):
         if name.endswith((".mat", ".npy")):
             os.remove(p(name))
+    lap.show("phase 7")
     return out
 
 
@@ -1636,13 +1693,8 @@ def vgg_check() -> dict:
 
 def run_extraction() -> tuple[dict, np.ndarray]:
     """Phase 8 -> its record and (a)'s one-process `full` matrix."""
-    out = {"seconds": {}}
-    t_phase = time.perf_counter()
-
-    def lap(step: str) -> None:
-        nonlocal t_phase
-        out["seconds"][step] = time.perf_counter() - t_phase
-        t_phase = time.perf_counter()
+    lap = Laps()
+    out = {"seconds": lap.seconds}
 
     shutil.rmtree(EXTRACT_DIR, ignore_errors=True)  # no store left by an earlier run
     os.makedirs(os.path.join(EXTRACT_DIR, "LIVE-Qualcomm"))
@@ -1748,7 +1800,7 @@ def run_extraction() -> tuple[dict, np.ndarray]:
     out["d"] = vgg_check()
     shutil.rmtree(EXTRACT_DIR)
     lap("d")
-    print(f"  phase 8 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    lap.show("phase 8")
     return out, full_mat
 
 
@@ -1788,13 +1840,8 @@ def run_ingest() -> dict:
     seeded frames; and in (e) a real mp4 decoded through cv2, which the
     card's host has (libav it has not)."""
     os.makedirs(INGEST_DIR, exist_ok=True)
-    out = {"seconds": {}}
-    t_phase = time.perf_counter()
-
-    def lap(step: str) -> None:
-        nonlocal t_phase
-        out["seconds"][step] = time.perf_counter() - t_phase
-        t_phase = time.perf_counter()
+    lap = Laps()
+    out = {"seconds": lap.seconds}
 
     rs, vs = seeded_states(vit_depth=12)
     fx = FeatureExtractor(rs, vs, dtype=torch.bfloat16, vit_depth=12, device="cuda")
@@ -1959,7 +2006,7 @@ def run_ingest() -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(INGEST_DIR)
     lap("g")
-    print(f"  phase 9 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    lap.show("phase 9")
     return out
 
 
@@ -2192,13 +2239,8 @@ def run_mesh(streamed540: list, full1080: np.ndarray, one_process: dict) -> dict
     phase 8 (a)'s matrix and record (launches, warm ms a video)."""
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     os.makedirs(MESH_DIR)
-    out = {"seconds": {}}
-    t_phase = time.perf_counter()
-
-    def lap(step: str) -> None:
-        nonlocal t_phase
-        out["seconds"][step] = time.perf_counter() - t_phase
-        t_phase = time.perf_counter()
+    lap = Laps()
+    out = {"seconds": lap.seconds}
 
     print("  (a) world size 1 under NCCL: ShardedVideoEvaluator.run on phase 6's four 540p clips")
     out["a"], ref = mesh_one_rank(streamed540)
@@ -2298,7 +2340,7 @@ def run_mesh(streamed540: list, full1080: np.ndarray, one_process: dict) -> dict
         raise AssertionError("(d) an index past the device count was accepted")
     shutil.rmtree(MESH_DIR)
     lap("d")
-    print(f"  phase 10 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    lap.show("phase 10")
     return out
 
 
@@ -2330,13 +2372,8 @@ def probe_pil() -> str | None:
 def run_tools() -> dict:
     """Phase 11: ``visualize`` and ``parity`` at full width on the card."""
     os.makedirs(TOOLS_DIR, exist_ok=True)
-    out = {"seconds": {}}
-    t_phase = time.perf_counter()
-
-    def lap(step: str) -> None:
-        nonlocal t_phase
-        out["seconds"][step] = time.perf_counter() - t_phase
-        t_phase = time.perf_counter()
+    lap = Laps()
+    out = {"seconds": lap.seconds}
 
     import cv2
 
@@ -2505,7 +2542,7 @@ def run_tools() -> dict:
             raise AssertionError(f"(d) parity --check all: {out['d']}")
         lap("d")
     shutil.rmtree(TOOLS_DIR)
-    print(f"  phase 11 seconds by step: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    lap.show("phase 11")
     return out
 
 
@@ -2513,47 +2550,69 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    phase = Laps()  # seconds by phase; phases 3-11 also keep theirs by step
     card = gpu_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"host RAM {host_ram_bytes()} B, {os.cpu_count()} CPUs")
+    phase("1 card")
 
     t0 = time.perf_counter()
     _native.lib()
     build_s = time.perf_counter() - t0
     print(f"[2] kernels built and loaded in {build_s:.1f} s")
     build_info = report_build(_native.build())
+    phase("2 build")
 
     print("[3] kernels against their plain versions (540p, 1080p and 4K shapes)")
+    lap3 = Laps()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stress = check_flow_kernels(gen) | check_attention_kernel(gen)
+    stress = check_flow_kernels(gen)
+    lap3("K1 and K2 stress shapes")
+    stress |= check_attention_kernel(gen)
     torch.cuda.synchronize()
+    lap3("K3 stress shapes")
     flow_mem = flow_live_planes()
+    lap3("flow live planes")
     long_attn = time_long_attention(gen)
+    lap3("long K3 timing")
     wide_flow = check_wide_flow()
+    lap3("wide-window flow")
+    lap3.show("phase 3")
+    phase("3 kernels")
 
     print("[4] CUDA run against CPU run (2 frames, 240x320, depth-2 ViT, f32)")
     cos_cpu = check_cuda_vs_cpu()
+    phase("4 CUDA vs CPU")
 
     print("[5] main path: 540x960, 16 frames + 16 pairs, ResNet-50 + ViT-B/16 depth 12")
     main_res, vec540 = run_main_path()
+    phase("5 main path")
 
     print("[6] serving paths: batched, streamed, 1080p chunked, serve loop")
     serving, streamed540 = run_serving()
+    phase("6 serving")
 
     print("[7] training the MLP head at full width: train, CUDA vs CPU, train-lsvq, finetune")
     training = run_training(vec540)
+    phase("7 training")
 
     print("[8] extraction: extract in every mode at 1080p, CUDA vs CPU, VGG-16, --profile-dir")
     extraction, full1080 = run_extraction()
+    phase("8 extraction")
 
     print("[9] ingest: BGR against I420, predict_arrays, predict_batch grouping, no pairs, decoder, warmup")
     ingest = run_ingest()
+    phase("9 ingest")
 
     print("[10] multi-device: world size 1 under NCCL, 2 and 4 ranks sharing the card through gloo")
     mesh = run_mesh(streamed540, full1080, extraction["a"])
+    phase("10 multi-device")
 
     print("[11] tools: visualize, production numerics, parity --check features and all, full width")
     tools = run_tools()
+    phase("11 tools")
+    print(f"[12] seconds by phase: { {k: round(v, 1) for k, v in phase.seconds.items()} }, "
+          f"total {sum(phase.seconds.values()):.1f}")
 
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
@@ -2601,6 +2660,7 @@ def main() -> int:
     with open(os.path.join(WORK_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "build": build_info, "kernels": kernels,
+                   "seconds": {"phases": phase.seconds, "phase_3": lap3.seconds},
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
                    "long_attention": long_attn, "wide_window_flow": wide_flow,

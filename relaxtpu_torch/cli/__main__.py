@@ -918,6 +918,9 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
     )
     sp.add_argument("--resolutions", nargs="+", default=["540x960", "1080x1920"],
                     help="HxW list, e.g. 540x960 720x1280")
+    sp.add_argument("--bucket", type=int, default=8,
+                    help="the JAX package's frame-count bucket, accepted and ignored: the port runs "
+                    "each video at its own counts and pads nothing")
     sp.add_argument("--counts", nargs="+", type=int, default=[8, 16, 32],
                     help="frame and pair counts to run at each resolution")
     _add_ingest_flag(sp)
@@ -1138,7 +1141,7 @@ def _apply_config(argv, subparsers: dict) -> None:
                  weight_decay=tr.weight_decay, select_criteria=tr.select_criteria)
     set_defaults("finetune", dataset=ex.dataset, n_repeats=tr.n_repeats, epochs=tr.epochs, no_bn=not tr.use_bn)
     set_defaults("greyscale", dataset=ex.dataset, root=ex.data_root, metadata_dir=ex.metadata_dir)
-    set_defaults("warmup", ingest=ex.ingest, **backbone)  # the port pads nothing: no frame bucket
+    set_defaults("warmup", bucket=ex.frame_bucket, ingest=ex.ingest, **backbone)  # the bucket is ignored
     set_defaults("train-cross", epochs=tr.epochs, no_bn=not tr.use_bn)
     set_defaults("visualize", **backbone)
     set_defaults("parity", dataset=ex.dataset, **backbone)

@@ -43,22 +43,55 @@
 // 256).  A score row no longer fits on chip, so the softmax runs in two
 // passes over key tiles staged in shared memory: pass 1 computes S tile by
 // tile and keeps each query row's running max m and sum l in f32; pass 2
-// recomputes S, forms P = exp(s - m) / l in f32, casts P to the activation
+// recomputes S with the same mma.sync sequence (so its max is pass 1's to
+// the bit), forms P = exp(s - m) / l in f32, casts P to the activation
 // type, and accumulates P V in f32 before O is written once.  Online
 // (flash) rescaling of O would divide after P V and round P at another
 // place than the JAX package; two passes keep its numerics for one more
-// Q K^T.  At (48, 577, 12, 64) that is 4 B H N^2 D = 49 GFLOP of the
-// function's work (170 MB of q/k/v/o: bytes bound bf16 at ~0.05 ms, the f32
-// FMA rate bounds f32 at ~0.73 ms) plus 25 GFLOP of recomputed scores.
-// bf16: a block of 4 warps per (image, head, 64 queries), each warp 16
-// queries; key tiles (64 keys, 32 at D = 256) double-buffered by 16-byte
-// cp.async; Q K^T and P V by mma.sync.m16n8k16 through ldmatrix as in the
-// short kernel, with the same per-score accumulation order.  f32: a block
-// of 256 threads per (image, head, 32 queries); a thread forms 2 queries x
-// the tile's keys / 16 scores by FMAs from shared memory, and in pass 2
-// writes P to shared memory key-major and accumulates 2 queries x D/16
-// output dims.  Simple and right first: no TMA, wgmma or warp
-// specialisation yet.
+// Q K^T.  What bounds it at ViT-B/16 384x384, (48, 577, 12, 64): 170 MB of
+// q/k/v/o (bf16: 0.0508 ms at 3.35 TB/s) and 4 B H N^2 D = 49 GFLOP of the
+// function's work plus 25 GFLOP of recomputed scores (bf16: 0.075 ms at 989
+// TFLOP/s); f32 with TF32 off is bound by the FMA rate (~0.73 ms).  Past
+// the tensor cores, the exact softmax costs two exponentials a score (pass
+// 1's sum, pass 2's P): ~0.12 ms of the SFU's 16 a clock an SM.
+//
+// bf16 at D = 32 and 64 (mha_bf16_ring_kernel).  A block of 4 warps takes
+// 128 queries of one (image, head), 32 rows a warp.  Against the design
+// that D = 128 and 256 keep (64-query blocks of 4 x 16 rows, Q's fragments
+// reloaded from shared memory at every k-step, key tiles double-buffered by
+// cp.async between two __syncthreads a tile: 0.59 ms at the shape above):
+//   1. L2 re-reads of K and V (each 64-query block read K twice and V once,
+//      ~1.3 GB a call): 128-query blocks halve them.
+//   2. shared-memory reads per MMA: each warp loads its Q fragments once, to
+//      registers, for both passes; each K fragment (ldmatrix) and V fragment
+//      (ldmatrix.trans) then feeds four mma.sync instead of two.
+//   3. the lock-step pipeline: key tiles go round a ring of RSTAGES stages
+//      with a "full" and an "empty" mbarrier a stage and no block-wide
+//      barrier in the tile loop; a warp waits for its data and, before
+//      refilling a stage after its tile, for the other warps to release it.
+// The exponentials are base-2 with the scale folded in, c = scale log2(e):
+// pass 1 sums 2^(c s - c m), pass 2 forms P = 2^(c s - c m - log2 l), one
+// FMA and one ex2.approx a score (f32, within a few ulp of exp(s - m) / l;
+// P is rounded to bf16 after).  Every copy is a 16-byte cp.async whose
+// completion arrives on an mbarrier (cp.async.mbarrier.arrive.noinc): a
+// stage's for K and V, a warp's own for its 32 Q rows.  The bulk copy
+// (cp.async.bulk, the TMA without a tensor map) moves one strided token row
+// a copy here, and measured on the H100 it is the slower route, for K and V
+// by half again and for Q by a few per cent
+// (scripts/torch_k3_ring_variants.py; PERF.md).  165 registers at D = 64
+// (120 at 32), no spills, 3 blocks an SM.
+//
+// bf16 at D = 128 and 256 (mha_bf16_long_kernel), where 32 rows a warp
+// would hold 128 or 256 f32 accumulators alone and spill: a block of 4
+// warps per (image, head, 64 queries), each warp 16 queries; key
+// tiles (64 keys, 32 at D = 256) double-buffered by 16-byte cp.async; Q K^T
+// and P V by mma.sync.m16n8k16 through ldmatrix as in the short kernel,
+// with the same per-score accumulation order.
+//
+// f32: a block of 256 threads per (image, head, 32 queries); a thread forms
+// 2 queries x the tile's keys / 16 scores by FMAs from shared memory, and
+// in pass 2 writes P to shared memory key-major and accumulates 2 queries x
+// D/16 output dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -626,6 +659,308 @@ mha_bf16_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------- long bf16 at D = 32 and 64
+// A block of 4 warps per (image, head, 128 queries), 32 query rows a warp
+// (two m16 tiles).  Key tiles of RK keys (K alone in pass 1, K and V in
+// pass 2) go round a ring of RSTAGES stages in shared memory, rows of D + 8
+// elements so that ldmatrix stays free of bank conflicts.  A stage has a
+// "full" mbarrier (an arrival from each thread once its cp.async copies of
+// the tile have landed) and an "empty" one (an arrival from each warp that
+// has finished with the tile).  After each tile a thread issues its share
+// of the tile RSTAGES - 1 further on, into the stage that every warp has
+// released.  Each warp copies its own 32 Q rows onto its own mbarrier.
+constexpr int RQ = 128;       // queries a block: 4 warps x 32 rows
+constexpr int RK = 64;        // keys a ring stage
+constexpr int RS = 32;        // keys a step of a warp: S of a step is 2 x 4 n8 tiles
+constexpr int RSTAGES = 3;    // ring depth: 3 blocks an SM
+constexpr int RTHREADS = 128;
+constexpr int RBARS = 128;    // bytes for the 2 RSTAGES + 4 mbarriers, ahead of the tiles
+
+template <int D>
+constexpr size_t bf16_ring_smem() {  // barriers, Q tile, RSTAGES x (K tile, V tile)
+  return RBARS + sizeof(bf16) * (size_t)(RQ + 2 * RSTAGES * RK) * (D + 8);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// an arrival once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// until the phase of parity ``parity`` has completed; a wait of 2^34 cycles
+// (seconds: a lost arrival) traps, so the launch fails instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+// 2^x by the SFU alone (ex2.approx.ftz: 2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s = Q K^T (unscaled) for a warp's 32 queries (A fragments qa of its two
+// m16 tiles) and RS keys (rows of ks, the first being key ``key0``); keys
+// >= N masked to -inf.  s[mt][j] holds keys 8j + 2t (+1) of rows g and g + 8
+// of m16 tile mt; each score sums its k-steps in the short kernel's order,
+// and each K fragment feeds four mma.sync.
+template <int D>
+__device__ __forceinline__ void ring_scores(float (&s)[2][RS / 8][4], const uint32_t (&qa)[2][D / 16][4],
+                                            const bf16* ks, int key0, int N, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < RS / 8; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int nt = 0; nt < RS / 16; ++nt) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, ks + (16 * nt + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(s[mt][2 * nt], qa[mt][kk], kb[0], kb[1]);
+        mma_bf16(s[mt][2 * nt + 1], qa[mt][kk], kb[2], kb[3]);
+      }
+    }
+  }
+  if (key0 + RS > N) {  // warp-uniform: only the step that reaches past N masks
+    const int t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < RS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * j + 2 * t + (e & 1) >= N) s[mt][j][e] = -INFINITY;
+  }
+}
+
+// q, k, v: (B, N, H, D) sharing the element strides (sb, sn, D, 1), rows
+// 16-byte aligned; o: contiguous (B, N, H, D).  Block (x, h, b) takes
+// queries RQ x .. RQ x + RQ - 1 of (image b, head h).
+template <int D>
+__global__ void __launch_bounds__(RTHREADS, 3)
+mha_bf16_ring_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, int N, int H,
+                     long long sb, long long sn, float scale) {
+  constexpr int LD = D + 8;
+  constexpr int CH = D / 8;                   // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t full0 = smem_addr(smem_raw);      // full[RSTAGES]
+  const uint32_t empty0 = full0 + 8 * RSTAGES;     // empty[RSTAGES]
+  const uint32_t qbar0 = full0 + 16 * RSTAGES;     // Q rows of warp w landed: qbar0 + 8 w
+  bf16* const qs = reinterpret_cast<bf16*>(smem_raw + RBARS);  // RQ x LD
+  bf16* const ring = qs + RQ * LD;  // stage st: K tile at ring + 2 st RK LD, its V tile RK LD further
+  const int h = blockIdx.y;
+  const long long base = (long long)blockIdx.z * sb + (long long)h * D;
+  const int q0 = blockIdx.x * RQ;
+  const int qrows = min(RQ, N - q0);
+  const int tiles = (N + RK - 1) / RK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < RSTAGES; ++st) {
+      mbar_init(full0 + 8 * st, RTHREADS);
+      mbar_init(empty0 + 8 * st, RTHREADS / 32);
+    }
+    for (int w = 0; w < RTHREADS / 32; ++w) mbar_init(qbar0 + 8 * w, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Q first: each warp copies its own 32 rows, completing on its own barrier
+  for (int c = lane; c < 32 * CH; c += 32) {
+    const int r = 32 * warp + c / CH;
+    if (r < qrows) cp_async16(qs + r * LD + (c % CH) * 8, q + base + (long long)(q0 + r) * sn + (c % CH) * 8);
+  }
+  cp_async_arrive(qbar0 + 8 * warp);
+  // Zeros in the V buffers, once, when the last tile is ragged: a stage's
+  // rows past N then hold zeros or an earlier tile's V rows, finite either
+  // way (P is 0 there, and 0 x NaN is NaN in P V).  Q rows past N stay as
+  // they are: a row's scores, softmax and output are its own, and its
+  // output is not written.
+  if (N % RK)
+    for (int i = threadIdx.x; i < RSTAGES * RK * CH; i += RTHREADS) {
+      const int st = i / (RK * CH), r = (i / CH) % RK;
+      *reinterpret_cast<uint4*>(ring + (2 * st + 1) * RK * LD + r * LD + (i % CH) * 8) = make_uint4(0, 0, 0, 0);
+    }
+  __syncthreads();
+
+  // Load l (l < 2 tiles) fills stage l % RSTAGES with key tile l % tiles: K
+  // for pass 1 (l < tiles), K and V for pass 2.  A thread issues its share
+  // of load l once it has computed tile l - RSTAGES + 1 and every warp has
+  // released the stage (its tile l - RSTAGES), so a warp may run a tile
+  // ahead of the others.  A thread copies 16 bytes of every RPASS-th row.
+  constexpr int RPASS = RTHREADS / CH;
+  const int lrow = threadIdx.x / CH, lcol = (threadIdx.x % CH) * 8;
+  auto load = [&](int l) {
+    if (l >= 2 * tiles) return;
+    const int st = l % RSTAGES;
+    if (l >= RSTAGES) mbar_wait(empty0 + 8 * st, (l / RSTAGES - 1) & 1);
+    const bool with_v = l >= tiles;
+    const int key0 = (with_v ? l - tiles : l) * RK;
+    const int rows = min(RK, N - key0);
+    const long long off = base + (long long)(key0 + lrow) * sn + lcol;
+    bf16* const ks = ring + 2 * st * RK * LD + lrow * LD + lcol;
+#pragma unroll
+    for (int r = 0; r < RK / RPASS; ++r) {
+      if (lrow + r * RPASS >= rows) break;
+      cp_async16(ks + r * RPASS * LD, k + off + r * RPASS * sn);
+      if (with_v) cp_async16(ks + (RK + r * RPASS) * LD, v + off + r * RPASS * sn);
+    }
+    cp_async_arrive(full0 + 8 * st);
+  };
+  auto release = [&](int l) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * (l % RSTAGES));
+  };
+  for (int l = 0; l < RSTAGES - 1; ++l) load(l);
+
+  // a thread holds rows g and g + 8 of each of its warp's m16 tiles mt = 0,
+  // 1 (index 2 mt + half).  A warp whose rows all lie past N computes
+  // nothing but loads and releases as the others do.
+  const int g = lane >> 2, t = lane & 3;
+  const bool busy = q0 + 32 * warp < N;  // warp-uniform
+  uint32_t qa[2][D / 16][4];
+  if (busy) {
+    mbar_wait(qbar0 + 8 * warp, 0);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldmatrix_x4(qa[mt][kk], qs + (32 * warp + 16 * mt + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  }
+
+  // base 2, the scale folded in: exp(scale (s - m)) = 2^(c s - c m), with m
+  // the row's largest unscaled score (the scale is positive)
+  const float c = scale * 1.4426950408889634f;
+  // pass 1: each thread's running max and sum over its own keys of each row
+  // (no shuffles in the loop), merged over the quad after the last tile
+  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY}, sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % RSTAGES;
+    mbar_wait(full0 + 8 * st, (i / RSTAGES) & 1);
+    if (busy) {
+      const bf16* const ks = ring + 2 * st * RK * LD;
+#pragma unroll
+      for (int step = 0; step < RK / RS; ++step) {
+        const int key0 = i * RK + step * RS;
+        if (key0 >= N) break;  // warp-uniform
+        float s[2][RS / 8][4];
+        ring_scores<D>(s, qa, ks + step * RS * LD, key0, N, lane);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int mt = r >> 1, e0 = 2 * (r & 1);
+          float tm = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < RS / 8; ++j) tm = fmaxf(tm, fmaxf(s[mt][j][e0], s[mt][j][e0 + 1]));
+          const float m = fmaxf(mx[r], tm);
+          const float mc = m == -INFINITY ? 0.0f : m * c;  // all of this thread's keys masked so far
+          float ts = 0.0f;
+#pragma unroll
+          for (int j = 0; j < RS / 8; ++j)
+            ts += ex2(fmaf(s[mt][j][e0], c, -mc)) + ex2(fmaf(s[mt][j][e0 + 1], c, -mc));
+          sum[r] = sum[r] * ex2(fmaf(mx[r], c, -mc)) + ts;
+          mx[r] = m;
+        }
+      }
+    }
+    load(i + RSTAGES - 1);
+    release(i);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {  // key 0 < N lies in every row's quad: m is finite
+    float m = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float l = sum[r] * ex2(fmaf(mx[r], c, -m * c));
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    mx[r] = fmaf(m, c, __log2f(l));  // from here on mx holds c m + log2 l
+  }
+
+  // pass 2: P = exp(s - m) / l in f32 (2^(c s - c m - log2 l)), cast to
+  // bf16; O = P V in f32, each V fragment (ldmatrix.trans) feeding four
+  // mma.sync
+  float acc[2][D / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
+  for (int i = tiles; i < 2 * tiles; ++i) {
+    const int st = i % RSTAGES;
+    mbar_wait(full0 + 8 * st, (i / RSTAGES) & 1);
+    if (busy) {
+      const bf16* const ks = ring + 2 * st * RK * LD;
+      const bf16* const vs = ks + RK * LD;
+#pragma unroll
+      for (int step = 0; step < RK / RS; ++step) {
+        const int key0 = (i - tiles) * RK + step * RS;
+        if (key0 >= N) break;  // warp-uniform
+        float s[2][RS / 8][4];
+        ring_scores<D>(s, qa, ks + step * RS * LD, key0, N, lane);
+#pragma unroll
+        for (int kk = 0; kk < RS / 16; ++kk) {
+          uint32_t pa[2][4];  // the accumulators of key tiles 2kk, 2kk+1: P's A fragment of k-step kk
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            float p[2][4];
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {  // 2^-inf = 0 for masked keys
+                const int r = 2 * mt + (e >> 1);
+                p[jj][e] = ex2(fmaf(s[mt][2 * kk + jj][e], c, -mx[r]));
+              }
+            pa[mt][0] = pack_bf16(p[0][0], p[0][1]);
+            pa[mt][1] = pack_bf16(p[0][2], p[0][3]);
+            pa[mt][2] = pack_bf16(p[1][0], p[1][1]);
+            pa[mt][3] = pack_bf16(p[1][2], p[1][3]);
+          }
+#pragma unroll
+          for (int dn = 0; dn < D / 16; ++dn) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vs + (step * RS + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                      dn * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(acc[mt][2 * dn], pa[mt], vb[0], vb[1]);
+              mma_bf16(acc[mt][2 * dn + 1], pa[mt], vb[2], vb[3]);
+            }
+          }
+        }
+      }
+    }
+    load(i + RSTAGES - 1);
+    release(i);
+  }
+  if (!busy) return;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + 32 * warp + 16 * mt + g + 8 * half;
+      if (row >= N) continue;
+      bf16* op = o + (((long long)blockIdx.z * N + row) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + 8 * j) = pack_bf16(acc[mt][j][2 * half], acc[mt][j][2 * half + 1]);
+    }
+}
+
 // -------------------------------------------------------------- long f32
 constexpr int LQF = 32;   // queries a long f32 block
 constexpr int NTL = 256;  // threads: 16 query pairs x 16 lanes
@@ -819,13 +1154,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 template <int D>
 int launch_bf16_long(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
                      long long sb, long long sn, float scale, cudaStream_t stream) {
-  constexpr size_t smem = bf16_long_smem<D>();
   static PerDevice opted;
-  const int attr = opt_in(opted, mha_bf16_long_kernel<D>, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((unsigned)((N + LQ - 1) / LQ), (unsigned)H, (unsigned)B);
-  mha_bf16_long_kernel<D><<<grid, 128, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, H, sb, sn, scale);
+  if constexpr (D <= 64) {  // the ring kernel; 32 rows a warp would spill at D = 128 and 256
+    constexpr size_t smem = bf16_ring_smem<D>();
+    const int attr = opt_in(opted, mha_bf16_ring_kernel<D>, smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((unsigned)((N + RQ - 1) / RQ), (unsigned)H, (unsigned)B);
+    mha_bf16_ring_kernel<D><<<grid, RTHREADS, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, H, sb, sn, scale);
+  } else {
+    constexpr size_t smem = bf16_long_smem<D>();
+    const int attr = opt_in(opted, mha_bf16_long_kernel<D>, smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((unsigned)((N + LQ - 1) / LQ), (unsigned)H, (unsigned)B);
+    mha_bf16_long_kernel<D><<<grid, 128, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, H, sb, sn, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,8 @@ import os
 
 import numpy as np
 
+from relaxtpu_torch.utils.keywords import jax_keywords
+
 REPORT_COLUMNS = ["Index", "vid", "Is Greyscale"]
 
 
@@ -55,6 +57,7 @@ def check_video_file_greyscale(path: str, tol: int = 3) -> tuple[bool, bool]:
     return grey and frame_read, frame_read
 
 
+@jax_keywords(df="meta")
 def greyscale_report(meta: dict, video_path_fn, tol: int = 3, progress=None) -> list[dict]:
     """The greyscale rows of a metadata table (``io.datasets``' column
     dict) -> report rows {Index, vid, Is Greyscale}; Index is the metadata

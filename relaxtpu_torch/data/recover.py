@@ -16,8 +16,10 @@ import numpy as np
 
 from relaxtpu_torch.io.metadata import write_csv
 from relaxtpu_torch.model.metrics import fit_logistic
+from relaxtpu_torch.utils.keywords import jax_keywords
 
 
+@jax_keywords(df="meta")
 def recover_median_split(meta: dict, features: np.ndarray, median_test_vids) -> tuple:
     """(x_train, y_train, x_test, y_test): the rows whose vid is in the
     recorded test list are the test set, in metadata order."""

@@ -19,6 +19,7 @@ import math
 import numpy as np
 
 from relaxtpu_torch.data.mos import mos_1_5_to_1_100
+from relaxtpu_torch.utils.keywords import jax_keywords
 
 
 def train_test_split(a, test_size: float, random_state: int | None):
@@ -62,6 +63,7 @@ def _drop_greyscale(meta: dict, features: np.ndarray, grey_indices):
     return {k: v[keep] for k, v in meta.items()}, features[keep]
 
 
+@jax_keywords(df="meta")
 def split_other(meta: dict, features: np.ndarray, test_size: float, random_state: int | None,
                 grey_indices=None):
     """Random holdout by unique vid, greyscale rows dropped first ->
@@ -76,6 +78,7 @@ def split_other(meta: dict, features: np.ndarray, test_size: float, random_state
     return features[train_mask], mos[train_mask], features[test_mask], mos[test_mask], test_vids
 
 
+@jax_keywords(train_df="train_meta", test_df="test_meta")
 def split_lsvq(train_meta: dict, test_meta: dict, train_features: np.ndarray,
                test_features: np.ndarray, grey_train=None, grey_test=None):
     """Fixed LSVQ train/test split."""
@@ -86,6 +89,7 @@ def split_lsvq(train_meta: dict, test_meta: dict, train_features: np.ndarray,
     return train_features, y_train, test_features, y_test, test_meta["vid"]
 
 
+@jax_keywords(train_df="train_meta", test_df="test_meta")
 def split_cross_dataset(train_meta: dict, test_meta: dict, train_features: np.ndarray,
                         test_features: np.ndarray, train_name: str = "youtube_ugc",
                         test_name: str = "cvd_2014", grey_train=None, grey_test=None):

@@ -273,9 +273,11 @@ class FeatureExtractor:
 
     # ------------------------------------------------------------ public API
     @torch.inference_mode()
-    def video_feature_async_i420(self, frames_i420, next_i420, h: int, w: int) -> torch.Tensor:
+    def video_feature_async_i420(self, frames_i420, next_i420, h: int, w: int, bucket: int = 8) -> torch.Tensor:
         """Packed I420 stacks (F, H*W*3/2) and (P, H*W*3/2) uint8 -> the
         (35203,) f32 vector on the device, enqueued without waiting for it.
+        ``bucket``, the JAX package's padding of the counts, is accepted and
+        ignored: the port runs each video at its own counts.
 
         The two stacks go up once (1.5 bytes a pixel) and are converted to
         BGR on the device, bit-identical to the host converter.  The pairs'
@@ -293,9 +295,10 @@ class FeatureExtractor:
         return self._videos_vec(frames, pairs, [n_frames], [n_pairs], 0)[0]
 
     @torch.inference_mode()
-    def video_feature_async(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8) -> torch.Tensor:
+    def video_feature_async(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8, bucket: int = 8) -> torch.Tensor:
         """BGR stacks (F, H, W, 3), (P, H, W, 3), (P, H, W, 3) uint8 -> the
         (35203,) f32 vector on the device, enqueued without waiting for it.
+        ``bucket`` is accepted and ignored, as in the I420 program.
 
         The stacks go up through pinned memory without blocking, frames once
         when prev is a prefix view of them (3 bytes a pixel).  A video with
@@ -315,16 +318,16 @@ class FeatureExtractor:
             return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
         return self._videos_vec(frames, pairs, [len(frames)], [n_pairs], 0)[0]
 
-    def video_feature_async_yuv(self, frames_yuv, next_yuv) -> torch.Tensor:
+    def video_feature_async_yuv(self, frames_yuv, next_yuv, bucket: int = 8) -> torch.Tensor:
         """(y, u, v) plane stacks, y (B, H, W) and u, v (B, H/2, W/2) uint8,
         of the sampled frames and of the pairs' second frames -> packed
-        I420 -> :meth:`video_feature_async_i420`."""
+        I420 -> :meth:`video_feature_async_i420` (``bucket`` ignored)."""
         h, w = np.asarray(frames_yuv[0]).shape[1:3]
         return self.video_feature_async_i420(pack_i420(*frames_yuv), pack_i420(*next_yuv), h, w)
 
     @torch.inference_mode()
     def video_features_batch_i420(self, frames_i420_list, next_i420_list, h: int, w: int,
-                                  chunk: int | None = None) -> torch.Tensor:
+                                  bucket: int = 8, chunk: int | None = None) -> torch.Tensor:
         """Many videos of one resolution -> (V, 35203) f32 on the device,
         enqueued without waiting for it.
 
@@ -332,7 +335,8 @@ class FeatureExtractor:
         concatenated ragged (two uploads for the whole batch) and each
         video's means are over its own rows.  The flow runs over the flat
         pair axis in chunks of ``chunk`` pairs: ``max_pair_batch(h, w)`` by
-        default, 0 for one chunk.
+        default, 0 for one chunk.  ``bucket`` is accepted and ignored: no
+        video is padded.
         """
         n_frames = [len(a) for a in frames_i420_list]
         n_pairs = [len(a) for a in next_i420_list]

@@ -34,6 +34,7 @@ from relaxtpu_torch.model.train import (
     train_and_evaluate,
 )
 from relaxtpu_torch.utils.checkpoint import load_snapshot, save_snapshot
+from relaxtpu_torch.utils.keywords import jax_keywords
 from relaxtpu_torch.utils.plots import plot_losses, plot_results
 
 log = logging.getLogger("relaxtpu_torch.protocol")
@@ -47,6 +48,7 @@ def preprocess_like_reference(x: np.ndarray, y: np.ndarray):
     return fs.fit_transform_like_reference(x).astype(np.float32), np.asarray(y, float), fs
 
 
+@jax_keywords(df="meta")
 def run_repeated_holdout(
     meta: dict,
     features: np.ndarray,

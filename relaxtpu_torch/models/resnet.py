@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from relaxtpu_torch.device import upload
+from relaxtpu_torch.utils.keywords import jax_keywords
 
 RESNET_TAPS = (
     "conv1",
@@ -36,6 +37,7 @@ def _imagenet_stats(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return upload(torch.tensor([IMAGENET_MEAN, IMAGENET_STD], dtype=dtype)[..., None, None], device)
 
 
+@jax_keywords(img_rgb_f01="rgb01")
 def resnet_preprocess(rgb01: torch.Tensor) -> torch.Tensor:
     """ImageNet normalisation of (B, 3, H, W) RGB in [0, 1]."""
     mean, std = _imagenet_stats(rgb01.dtype, rgb01.device)

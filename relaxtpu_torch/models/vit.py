@@ -23,8 +23,10 @@ import torch.nn.functional as F
 
 from relaxtpu_torch.ops.attention import attention_probs, mha
 from relaxtpu_torch.ops.resize import resize_hw
+from relaxtpu_torch.utils.keywords import jax_keywords
 
 
+@jax_keywords(img_rgb_f01="img_rgb01")
 def vit_preprocess(img_rgb01: torch.Tensor) -> torch.Tensor:
     """ViT input transform: identity on [0, 1] RGB (ToTensor only)."""
     return img_rgb01
@@ -98,11 +100,20 @@ class ViT(nn.Module):
         self.blocks = nn.Sequential(*[Block(embed_dim, num_heads) for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
-    def interpolate_pos_embed(self, hp: int, wp: int) -> torch.Tensor:
-        """The (1, N+1, D) position table for an hp x wp patch grid: as it
-        is for the square grid it was trained at, else its patch rows
-        resized bicubically in f32 (``relaxtpu/models/vit.py:103-117``)."""
-        pos = self.pos_embed
+    def interpolate_pos_embed(self, pos_embed: torch.Tensor | None = None, h_patches: int | None = None,
+                              w_patches: int | None = None, *, hp: int | None = None,
+                              wp: int | None = None) -> torch.Tensor:
+        """The (1, N+1, D) position table ``pos_embed`` (default: the
+        model's) for an h_patches x w_patches patch grid: as it is for the
+        square grid it was trained at, else its patch rows resized
+        bicubically in f32 (``relaxtpu/models/vit.py:103-117``).  Takes the
+        JAX package's arguments, and the port's ``(hp, wp)``, by position or
+        by keyword."""
+        if pos_embed is not None and not isinstance(pos_embed, torch.Tensor):  # the port's (hp, wp)
+            pos_embed, h_patches, w_patches = None, pos_embed, h_patches
+        hp = h_patches if hp is None else hp
+        wp = w_patches if wp is None else wp
+        pos = self.pos_embed if pos_embed is None else pos_embed
         n = pos.shape[1] - 1
         if hp * wp == n and hp == wp:
             return pos

@@ -97,11 +97,13 @@ class ShardedVideoEvaluator:
         return out
 
     # -------------------------------------------------------------- batches
-    def videos_batch_feature_i420(self, frames_i420_list, next_i420_list, h: int, w: int) -> torch.Tensor:
+    def videos_batch_feature_i420(self, frames_i420_list, next_i420_list, h: int, w: int,
+                                  bucket: int = 8) -> torch.Tensor:
         """(V, 35203) f32 on the host, the same on every rank: the batched
         multi-video program with the video list split into contiguous
         shares over the data axis.  The list is padded to a multiple of the
-        data axis with copies of the last video, whose rows are dropped."""
+        data axis with copies of the last video, whose rows are dropped.
+        ``bucket`` is accepted and ignored: no video's counts are padded."""
         n, i = self.mesh.shape["data"], self.mesh.data_index
         v_real = len(frames_i420_list)
         pad = (-v_real) % n

@@ -92,9 +92,10 @@ class DistributedMlpTrainStep:
     global batch: each data index passes the same number of rows (the
     global batch is their concatenation in data order), and the ranks of a
     model group pass the same chunk.  f32 with TF32 off, as the one-device
-    trainer runs."""
+    trainer runs.  ``cfg`` stands in the JAX package's position and, as
+    there, is not read."""
 
-    def __init__(self, mesh: Mesh, input_dim: int, hidden: int = 256, drop_rate: float = 0.1,
+    def __init__(self, mesh: Mesh, input_dim: int, cfg=None, hidden: int = 256, drop_rate: float = 0.1,
                  use_bn: bool = False, l1_w: float = 0.6, rank_w: float = 1.0, lr: float = 0.1,
                  weight_decay: float = 0.005):
         if use_bn:

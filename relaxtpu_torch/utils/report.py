@@ -16,6 +16,7 @@ import re
 import numpy as np
 
 from relaxtpu_torch.io.metadata import write_csv
+from relaxtpu_torch.utils.keywords import jax_keywords
 
 METRICS = ("SRCC", "KRCC", "PLCC", "RMSE")
 
@@ -46,6 +47,7 @@ def comparison_table(per_method: dict[str, dict[str, list]]) -> list[dict]:
     return _sorted(rows)
 
 
+@jax_keywords(df="rows")
 def against_baseline(rows: list[dict], baseline: dict[str, dict[str, float]]) -> list[dict]:
     """``rows`` and the reference's published numbers side by side;
     ``baseline`` = {dataset: {metric: value}}."""
