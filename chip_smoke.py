@@ -9,8 +9,9 @@ Phases (any failed check raises, so the exit code is not 0):
    print each kernel function's registers and spills (ptxas) and the count
    of tensor-core instructions in each K3 function's SASS (cuobjdump),
    failing if a bf16 K3 function (short or long) has none, if the long K3
-   (the ring kernel at D 32 and 64 among them) or the generic-radius K2
-   functions are missing, or if the ring kernel spills;
+   (the bf16 ring kernel and the f32 one-pass kernel at D 32 and 64 among
+   them) or the generic-radius K2 functions are missing, or if the ring
+   kernel or the one-pass kernel spills;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (matrix update) and K2 (box blur + solve) at the four 540p and the four
    1080p pyramid levels with 16 pairs, at the 4K finest level (2160x3840)
@@ -23,7 +24,10 @@ Phases (any failed check raises, so the exit code is not 0):
    (the short entries) and N in {257, 300, 577, 1025} x D in {32, 64, 80,
    128, 256} and N in {383, 384, 385, 640, 641} x D in {32, 64} (the long
    entries; the last set straddles the bf16 ring kernel's 128-query blocks
-   and 64-key tiles), in f32 and bf16, contiguous and as packed-qkv slices,
+   and the 64-query blocks and 64-key tiles of both long kernels) and N in
+   {264, 265, 272, 273, 288, 289} x D in {32, 64} (the widths 8, 16, 32 and
+   64 of the f32 one-pass kernel's last key tile), in f32 and bf16,
+   contiguous and as packed-qkv slices,
    each call launching the entry ``_plan`` names; the
    long entry called directly at N = 197 and 256 against the short one;
    every input sits at the start of a NaN-filled allocation; then the
@@ -275,7 +279,8 @@ H_HI, W_HI, FRAMES_HI = 1080, 1920, 40  # -> 20 frames, 20 pairs
 COS_BOUND = {"f32": 0.99999, "bf16": 0.9999}
 K1_FLOPS_PER_PX = 80    # corner weights, 5-plane gather, averaging, flow terms, taper, products
 LONG_ATTN_SHAPE = (FRAMES + 2 * PAIRS, 577, 12, 64)  # ViT-B/16 at 384x384
-RING_EDGES = (383, 384, 385, 640, 641)  # about 3 query blocks of 128 and 10 key tiles of 64
+RING_EDGES = (383, 384, 385, 640, 641)  # about 3 query blocks of 128 (6 of 64) and 10 key tiles of 64
+TAIL_EDGES = (264, 265, 272, 273, 288, 289)  # the f32 one-pass kernel's last tile: 8 | 16 | 32 | 64 keys
 WIDE_WINDOWS = (19, 21, 31, 63)  # K2 past the strip kernel's largest window
 WIDE_WINSIZE = 21                # the slice's flow window
 
@@ -401,17 +406,19 @@ def report_build(so: str) -> dict:
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
         kernel = re.search(r"(update_matrices|box_blur_solve|box_rows|box_cols_solve|mha_bf16(_long|_ring)?"
-                           r"|mha_f32(_long)?)_kernel", name)
+                           r"|mha_f32(_long|_online)?)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
         mma = f"; {f['tensor_core_instructions']} HMMA/HGMMA" if "mha" in name else ""
         print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
-    if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "box_rows")):
+    if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "mha_f32_online",
+                                                    "box_rows")):
         raise AssertionError("the long K3 or the generic-radius K2 functions are missing from the build")
-    ring = {n: f for n, f in funcs.items() if "mha_bf16_ring" in n}
-    if any("0 bytes spill stores" not in f.get("spill", "") for f in ring.values()):
-        raise AssertionError(f"the long bf16 ring kernel spills: {ring}")
+    for kernel in ("mha_bf16_ring", "mha_f32_online"):
+        fs = {n: f for n, f in funcs.items() if kernel in n}
+        if any("0 bytes spill stores" not in f.get("spill", "") for f in fs.values()):
+            raise AssertionError(f"the long K3 {kernel} kernel spills: {fs}")
     if not bf16_mha or not all(f.get("tensor_core_instructions") for f in bf16_mha):
         raise AssertionError("a bf16 K3 function has no tensor-core instructions in its SASS")
     return funcs
@@ -475,15 +482,17 @@ def check_attention_kernel(gen: torch.Generator) -> dict:
     """K3 in f32 and bf16 at the ViT shape and at N in {1, 17, 64, 197, 208,
     256} x D in {32, 64} (the short entries), and at N in {257, 300, 577,
     1025} x D in {32, 64, 80, 128, 256} (the long entries; D = 80 padded to
-    128) and N in ``RING_EDGES`` x D in {32, 64} (the edges of the long bf16
-    ring kernel's 128-query blocks and 64-key tiles), on contiguous
-    NaN-padded inputs and on column slices of a NaN-padded packed qkv
+    128) and N in ``RING_EDGES`` and ``TAIL_EDGES`` x D in {32, 64} (the
+    edges of the long kernels' query blocks and key tiles, and of the f32
+    one-pass kernel's last key tile), on contiguous NaN-padded inputs and on column slices of a NaN-padded packed qkv
     tensor, each call launching the entry ``_plan`` names; then the long
     entry called directly at N = 197 and 256 against the short one."""
     short = [ATTN_SHAPE] + [(2, n, 3, d) for n in (1, 17, 64, 197, 208, 256) for d in (32, 64)]
     long = [(2, n, 3, d) for n in (257, 300, 577, 1025) for d in (32, 64, 80, 128, 256)]
-    long += [(2, n, 3, d) for n in RING_EDGES for d in (32, 64)]
-    worst = {"K3_long_bf16_ring": 0.0}  # the long bf16 entry at D 32 and 64: the ring kernel
+    long += [(2, n, 3, d) for n in RING_EDGES + TAIL_EDGES for d in (32, 64)]
+    # the long entries at D 32 and 64: the bf16 ring kernel, the f32 one-pass kernel
+    worst = {"K3_long_bf16_ring": 0.0, "K3_long_f32_online": 0.0}
+    at = {"bf16": "K3_long_bf16_ring", "f32": "K3_long_f32_online"}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         worst[f"K3_{tag}"] = worst[f"K3_long_{tag}"] = 0.0
         for b, n, h, d in short + long:
@@ -500,14 +509,14 @@ def check_attention_kernel(gen: torch.Generator) -> dict:
             err2, rel2 = rel_err(mha(qs, ks, vs, scale), want)
             check(f"K3 {tag} {(b, n, h, d)} packed-qkv slices", rel2, TOL[f"K3_{tag}"], verbose=key == f"K3_{tag}")
             worst[key] = max(worst[key], err, err2)
-            if key == "K3_long_bf16" and d in attention_mod.SHORT_HEAD_DIMS:
-                worst["K3_long_bf16_ring"] = max(worst["K3_long_bf16_ring"], err, err2)
+            if key == f"K3_long_{tag}" and d in attention_mod.SHORT_HEAD_DIMS:
+                worst[at[tag]] = max(worst[at[tag]], err, err2)
             entry, _ = attention_mod._plan(n, d, dtype)
             if mha.long_launches - n0 != (2 if entry == attention_mod._LONG[dtype] else 0):
                 raise AssertionError(f"K3 {tag} {(b, n, h, d)}: not the entry _plan names ({entry})")
         print(f"  K3 {tag} long entries at N in (257, 300, 577, 1025) x D in (32, 64, 80, 128, 256) and N in "
-              f"{RING_EDGES} x D in (32, 64): largest |kernel - plain| {worst[f'K3_long_{tag}']:.3e}"
-              + (f" (the ring kernel, D 32 and 64: {worst['K3_long_bf16_ring']:.3e})" if tag == "bf16" else "")
+              f"{RING_EDGES + TAIL_EDGES} x D in (32, 64): largest |kernel - plain| {worst[f'K3_long_{tag}']:.3e}"
+              + f" (the {'ring' if tag == 'bf16' else 'one-pass'} kernel, D 32 and 64: {worst[at[tag]]:.3e})"
               + f", every call within {TOL[f'K3_{tag}']:.0e} of max |plain|")
         for n in (197, 256):
             for d in (32, 64):

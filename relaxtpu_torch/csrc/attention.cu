@@ -40,15 +40,17 @@
 //
 // Long rows (N > 256, or a head dim other than 32 and 64: fused_mha takes
 // any N and D; the wrapper pads D with zeros to the next of 32, 64, 128 and
-// 256).  A score row no longer fits on chip, so the softmax runs in two
-// passes over key tiles staged in shared memory: pass 1 computes S tile by
-// tile and keeps each query row's running max m and sum l in f32; pass 2
-// recomputes S with the same mma.sync sequence (so its max is pass 1's to
-// the bit), forms P = exp(s - m) / l in f32, casts P to the activation
-// type, and accumulates P V in f32 before O is written once.  Online
-// (flash) rescaling of O would divide after P V and round P at another
-// place than the JAX package; two passes keep its numerics for one more
-// Q K^T.  What bounds it at ViT-B/16 384x384, (48, 577, 12, 64): 170 MB of
+// 256).  A score row no longer fits on chip, so in bf16 (and in f32 at D =
+// 128 and 256) the softmax runs in two passes over key tiles staged in
+// shared memory: pass 1 computes S tile by tile and keeps each query row's
+// running max m and sum l in f32; pass 2 recomputes S with the same
+// sequence of products (so its max is pass 1's to the bit), forms P =
+// exp(s - m) / l in f32, casts P to the activation type, and accumulates
+// P V in f32 before O is written once.  Online (flash) rescaling of O would
+// divide after P V and round P at another place than the JAX package; two
+// passes keep its numerics for one more Q K^T.  In f32 no cast of P exists
+// to be moved, so at D = 32 and 64 the f32 entry runs one pass (below).
+// What bounds it at ViT-B/16 384x384, (48, 577, 12, 64): 170 MB of
 // q/k/v/o (bf16: 0.0508 ms at 3.35 TB/s) and 4 B H N^2 D = 49 GFLOP of the
 // function's work plus 25 GFLOP of recomputed scores (bf16: 0.075 ms at 989
 // TFLOP/s); f32 with TF32 off is bound by the FMA rate (~0.73 ms).  Past
@@ -88,10 +90,49 @@
 // and P V by mma.sync.m16n8k16 through ldmatrix as in the short kernel,
 // with the same per-score accumulation order.
 //
-// f32: a block of 256 threads per (image, head, 32 queries); a thread forms
-// 2 queries x the tile's keys / 16 scores by FMAs from shared memory, and
-// in pass 2 writes P to shared memory key-major and accumulates 2 queries x
-// D/16 output dims.
+// f32 at D = 32 and 64 (mha_f32_online_kernel): one pass with online
+// rescaling.  Its bound at (48, 577, 12, 64): 4 B H N^2 D = 49 GFLOP of FMAs
+// with TF32 off, 0.73 ms at 67 TFLOP/s (340 MB of q/k/v/o: 0.10 ms).  A
+// block of 8 warps takes 128 queries; key tiles of 64, the last one cut to
+// the narrowest of 32, 16 and 8 keys that holds the rest; a warp whose 16
+// queries all lie past N computes nothing.  At N = 577 that is 592 x 584
+// scores computed for 577 x 577, +3.8%.  Against the two-pass design that
+// D = 128 and 256 keep (32-query blocks; 3.89 ms at the shape above on an
+// H100 at 700 W), per cause:
+//   1. recomputed scores and three transcendental-heavy steps a score: one
+//      pass keeps each row's running max (scaled, mc = c max s with c =
+//      scale log2(e)) and each lane's partial sum, and per key tile raises
+//      the max, rescales the sums and the O accumulators by 2^(mc_old -
+//      mc_new) and adds P = 2^(c s - mc) (one FMA and one ex2.approx a
+//      score, within a few ulp) and P V; O is divided by the row sum once,
+//      an output.  74 -> 49 GFLOP, one exponential a score, no divide.
+//   2. thin micro-tiles: a thread holds 4 queries x 8 keys of S (4 x 8
+//      output dims in P V).  Q is staged once a block, transposed (Q^T[d]
+//      [q]: 4 queries in one 16-byte load); K and V stay token-major, so
+//      cp.async stages them as they lie and one 16-byte load holds 4 dims of
+//      a key.  Per 4 dims, 4 Q loads and 8 K loads feed 128 FMAs; per key, 1
+//      P load and 2 V loads feed 32: 10.7 FMAs a 16-byte load in both, each
+//      warp-wide load one wavefront (8 distinct rows of D + 4 floats, or 4
+//      consecutive Q^T / P columns, the rest broadcast).  A row's keys lie
+//      in 8 lanes of one warp: its tile max is three shuffles, S never goes
+//      to shared memory, and P goes once, key-major, to the warp's own tile.
+//   3. the lock-step tile loop: one K and one V buffer, each refilled by
+//      16-byte cp.async while the other is read (a tile's V lands during its
+//      scores, the next tile's K during its P V), with the two barriers
+//      that guard their reuse.  Two buffers of each (tile t + 1's K and V
+//      during tile t, one barrier) double the buffers' shared memory (one
+//      block an SM at D = 64) and measured slower on the H100.
+//   128-query blocks read K and V 5 times a head at N = 577, not 19.  At
+//   D = 64, 106 KB of shared memory a block; at D = 32, 74 KB; 2 blocks
+//   (16 warps) an SM, at most 128 registers a thread.
+//   scripts/torch_k3_f32_variants.py times the choices (queries a block,
+//   registers, micro-tile, buffers, expf) against this source on the card.
+//
+// f32 at D = 128 and 256 (mha_f32_long_kernel, two passes, where one pass's
+// 4 x D/8 accumulators a thread would spill): a block of 256 threads per
+// (image, head, 32 queries); a thread forms 2 queries x the tile's keys /
+// 16 scores by FMAs from shared memory, and in pass 2 writes P to shared
+// memory key-major and accumulates 2 queries x D/16 output dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1101,6 +1142,226 @@ mha_f32_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------- long f32 at D = 32 and 64
+// One pass with online rescaling (mha_f32_online_kernel).  A block of
+// F1_WARPS warps takes 16 F1_WARPS queries of one (image, head); lane
+// (qy, kx) = (lane / 8, lane % 8) of warp w holds queries 16 w + 4 qy ..
+// + 3 and, of a key tile, keys kx + 8 m (m < F1_KT / 8); in P V the same
+// queries and dims 4 kx + 32 e .. + 3 (e < D / 32).  A query row's keys lie
+// in the 8 lanes of one qy, so its tile max is three shuffles and a warp's
+// P never leaves the warp.
+constexpr int F1_WARPS = 8;             // 128 queries a block
+constexpr int F1_Q = 16 * F1_WARPS;
+constexpr int F1_KT = 64;               // keys a tile; F1_KT / 8 a thread
+constexpr int F1_KV_TILES = 1;          // one K and one V buffer, each refilled while the other is read
+constexpr int F1_PLD = 20;              // a warp's P row: 16 queries + 4, odd in 16-byte units
+
+template <int D>
+constexpr size_t f32_online_smem() {  // Q^T, F1_KV_TILES x (K tile, V tile), a P tile a warp
+  return sizeof(float) *
+         ((size_t)D * F1_Q + 2 * (size_t)F1_KV_TILES * F1_KT * (D + 4) + (size_t)F1_WARPS * F1_KT * F1_PLD);
+}
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+// 2^x for the softmax, the scale and log2(e) folded into its argument
+__device__ __forceinline__ float f1_exp2(float x) { return ex2(x); }
+
+// The scores of one key tile of 8 MC keys (the first being key ``key0``)
+// for a warp's queries: S = Q K^T (f32 FMAs over d in order), keys >= N
+// masked, the running max mc (scaled: c = scale log2(e), so P = 2^(c s -
+// mc)) raised to the tile's, the accumulators and each lane's partial sums
+// lp rescaled by 2^(mc_old - mc_new), P to the warp's tile pw key-major.
+template <int D, int MC>
+__device__ __forceinline__ void f1_scores(const float* qt, const float* ks, float* pw, float (&acc)[4][D / 8],
+                                          float (&mc)[4], float (&lp)[4], int key0, int N, float c, int qq,
+                                          int qy, int kx) {
+  constexpr int LD = D + 4;  // rows kx + 8 m of 8 lanes: 8 distinct 16-byte bank groups
+  float s[4][MC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < MC; ++m) s[i][m] = 0.0f;
+  const float* const qr = qt + qq;  // Q^T[d][qq .. qq + 3]: one 16-byte load, 4 queries
+  const float* const kr = ks + kx * LD;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[j] = *reinterpret_cast<const float4*>(qr + (d + j) * F1_Q);
+#pragma unroll
+    for (int m = 0; m < MC; ++m) {
+      const float4 b = *reinterpret_cast<const float4*>(kr + 8 * m * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][m] = fmaf(f4(a[0], i), b.x, s[i][m]);
+        s[i][m] = fmaf(f4(a[1], i), b.y, s[i][m]);
+        s[i][m] = fmaf(f4(a[2], i), b.z, s[i][m]);
+        s[i][m] = fmaf(f4(a[3], i), b.w, s[i][m]);
+      }
+    }
+  }
+  if (key0 + 8 * MC > N) {  // block-uniform: only the tile that reaches past N masks
+#pragma unroll
+    for (int m = 0; m < MC; ++m)
+      if (key0 + kx + 8 * m >= N)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][m] = -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float tm = s[i][0];
+#pragma unroll
+    for (int m = 1; m < MC; ++m) tm = fmaxf(tm, s[i][m]);
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 4));
+    const float mn = fmaxf(mc[i], tm * c);  // finite: key0 < N lies in every tile
+    const float alpha = f1_exp2(mc[i] - mn);  // 0 at the first tile (mc = -inf, sums and O 0)
+    mc[i] = mn;
+    float ts = 0.0f;
+#pragma unroll
+    for (int m = 0; m < MC; ++m) {
+      s[i][m] = f1_exp2(fmaf(s[i][m], c, -mn));  // 2^-inf = 0 for masked keys
+      ts += s[i][m];
+    }
+    lp[i] = fmaf(lp[i], alpha, ts);
+#pragma unroll
+    for (int e = 0; e < D / 8; ++e) acc[i][e] *= alpha;
+  }
+  // P key-major, a warp's own 16 queries: rows kx + 8 m, columns 4 qy .. + 3
+#pragma unroll
+  for (int m = 0; m < MC; ++m)
+    *reinterpret_cast<float4*>(pw + (kx + 8 * m) * F1_PLD + 4 * qy) = make_float4(s[0][m], s[1][m], s[2][m], s[3][m]);
+  __syncwarp();
+}
+
+// O += P V over the tile's 8 MC keys: 4 queries x D / 8 dims a thread
+template <int D, int MC>
+__device__ __forceinline__ void f1_pv(const float* vs, const float* pw, float (&acc)[4][D / 8], int qy, int kx) {
+  constexpr int LD = D + 4;
+#pragma unroll 8
+  for (int j = 0; j < 8 * MC; ++j) {
+    const float4 p = *reinterpret_cast<const float4*>(pw + j * F1_PLD + 4 * qy);
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) {
+      const float4 vv = *reinterpret_cast<const float4*>(vs + j * LD + 4 * kx + 32 * e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][4 * e] = fmaf(f4(p, i), vv.x, acc[i][4 * e]);
+        acc[i][4 * e + 1] = fmaf(f4(p, i), vv.y, acc[i][4 * e + 1]);
+        acc[i][4 * e + 2] = fmaf(f4(p, i), vv.z, acc[i][4 * e + 2]);
+        acc[i][4 * e + 3] = fmaf(f4(p, i), vv.w, acc[i][4 * e + 3]);
+      }
+    }
+  }
+  __syncwarp();  // the next tile rewrites P
+}
+
+// The tile at key0, its scores and then its P V, with mid() (block-wide)
+// between them; its width: F1_KT, or for a ragged last tile the narrowest
+// of F1_KT / 2, / 4, ... (down to 8) that holds the N - key0 keys left
+// (N = 577: 9 tiles of 64, then 8 keys for the last one).  A warp that is
+// not busy runs mid() alone.
+template <int D, int MC, typename Mid>
+__device__ __forceinline__ void f1_tile(bool busy, const float* qt, const float* ks, const float* vs, float* pw,
+                                        float (&acc)[4][D / 8], float (&mc)[4], float (&lp)[4], int key0, int N,
+                                        float c, int qq, int qy, int kx, Mid&& mid) {
+  if constexpr (MC > 1) {
+    if (N - key0 <= 4 * MC) {
+      f1_tile<D, MC / 2>(busy, qt, ks, vs, pw, acc, mc, lp, key0, N, c, qq, qy, kx, mid);
+      return;
+    }
+  }
+  if (busy) f1_scores<D, MC>(qt, ks, pw, acc, mc, lp, key0, N, c, qq, qy, kx);
+  mid();
+  if (busy) f1_pv<D, MC>(vs, pw, acc, qy, kx);
+}
+
+// q, k, v: (B, N, H, D) sharing the element strides (sb, sn, D, 1), rows
+// 16-byte aligned; o: contiguous (B, N, H, D).  Block (x, h, b) takes
+// queries F1_Q x .. F1_Q x + F1_Q - 1 of (image b, head h).
+template <int D>
+__global__ void __launch_bounds__(32 * F1_WARPS, 2)
+mha_f32_online_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, int N, int H,
+                      long long sb, long long sn, float scale) {
+  constexpr int LD = D + 4;
+  constexpr int THREADS = 32 * F1_WARPS;
+  constexpr int TILE = F1_KT * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* const qt = smem;                      // D x F1_Q: Q^T, for the whole key loop
+  float* const kb = qt + D * F1_Q;             // F1_KV_TILES x F1_KT x LD
+  float* const vb = kb + F1_KV_TILES * TILE;   // F1_KV_TILES x F1_KT x LD
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const pw = vb + F1_KV_TILES * TILE + warp * F1_KT * F1_PLD;  // this warp's P, F1_KT x F1_PLD
+  const int h = blockIdx.y;
+  const long long base = (long long)blockIdx.z * sb + (long long)h * D;
+  const int q0 = blockIdx.x * F1_Q;
+  const int tiles = (N + F1_KT - 1) / F1_KT;
+  const int qy = lane >> 3, kx = lane & 7;
+  const int qq = 16 * warp + 4 * qy;  // the thread's first query in the block
+
+  // K's first tile by cp.async (rows past N as zeros, here and below: 0 x
+  // NaN is NaN in P V), then Q transposed through registers (rows past N as
+  // zeros) meanwhile
+  stage_rows<float, D, F1_KT, THREADS>(kb, k, base, sn, 0, N);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < F1_Q * (D / 4); i += THREADS) {
+    const int r = i % F1_Q, col = (i / F1_Q) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < N) x = *reinterpret_cast<const float4*>(q + base + (long long)(q0 + r) * sn + col);
+    qt[col * F1_Q + r] = x.x;
+    qt[(col + 1) * F1_Q + r] = x.y;
+    qt[(col + 2) * F1_Q + r] = x.z;
+    qt[(col + 3) * F1_Q + r] = x.w;
+  }
+
+  const bool busy = q0 + 16 * warp < N;  // warp-uniform: a warp past N only stages and waits
+  const float c = scale * 1.4426950408889634f;  // exp(scale (s - m)) = 2^(c s - c m)
+  float acc[4][D / 8], mc[4], lp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mc[i] = -INFINITY, lp[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < D / 8; ++e) acc[i][e] = 0.0f;
+  }
+  // Two barriers a tile, each guarding a buffer's reuse: V lands during the
+  // tile's scores, the next tile's K during its P V.
+  for (int it = 0; it < tiles; ++it) {
+    const int key0 = F1_KT * it;
+    cp_async_wait<0>();
+    __syncthreads();  // K of tile it landed; every warp is done with V of tile it - 1
+    stage_rows<float, D, F1_KT, THREADS>(vb, v, base, sn, key0, N);
+    cp_async_commit();
+    f1_tile<D, F1_KT / 8>(busy, qt, kb, vb, pw, acc, mc, lp, key0, N, c, qq, qy, kx, [=] {
+      cp_async_wait<0>();
+      __syncthreads();  // V landed; every warp is done with K
+      if (it + 1 < tiles) {
+        stage_rows<float, D, F1_KT, THREADS>(kb, k, base, sn, key0 + F1_KT, N);
+        cp_async_commit();
+      }
+    });
+  }
+  if (!busy) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = lp[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int row = q0 + qq + i;
+    if (row >= N) continue;
+    float* const op = o + (((long long)blockIdx.z * N + row) * H + h) * D + 4 * kx;
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e)  // one correctly rounded divide an output
+      *reinterpret_cast<float4*>(op + 32 * e) =
+          make_float4(__fdiv_rn(acc[i][4 * e], l), __fdiv_rn(acc[i][4 * e + 1], l),
+                      __fdiv_rn(acc[i][4 * e + 2], l), __fdiv_rn(acc[i][4 * e + 3], l));
+  }
+}
+
 // --------------------------------------------------------------- launch
 // The dynamic shared-memory opt-in is set once per kernel function and
 // device (a PerDevice static in each launcher instantiation), to the most it
@@ -1176,13 +1437,22 @@ int launch_bf16_long(const void* q, const void* k, const void* v, void* o, int B
 template <int D>
 int launch_f32_long(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
                     long long sb, long long sn, float scale, cudaStream_t stream) {
-  constexpr size_t smem = f32_long_smem<D>();
   static PerDevice opted;
-  const int attr = opt_in(opted, mha_f32_long_kernel<D>, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((unsigned)((N + LQF - 1) / LQF), (unsigned)H, (unsigned)B);
-  mha_f32_long_kernel<D><<<grid, NTL, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, sb, sn, scale);
+  if constexpr (D <= 64) {  // one pass; at D = 128 and 256 its accumulators would spill
+    constexpr size_t smem = f32_online_smem<D>();
+    const int attr = opt_in(opted, mha_f32_online_kernel<D>, smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((unsigned)((N + F1_Q - 1) / F1_Q), (unsigned)H, (unsigned)B);
+    mha_f32_online_kernel<D><<<grid, 32 * F1_WARPS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, sb, sn, scale);
+  } else {
+    constexpr size_t smem = f32_long_smem<D>();
+    const int attr = opt_in(opted, mha_f32_long_kernel<D>, smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((unsigned)((N + LQF - 1) / LQF), (unsigned)H, (unsigned)B);
+    mha_f32_long_kernel<D><<<grid, NTL, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, sb, sn, scale);
+  }
   return (int)cudaGetLastError();
 }
 

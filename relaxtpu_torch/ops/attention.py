@@ -7,9 +7,11 @@ masked, softmax in f32, probabilities cast to the activation type, P.V
 accumulated in f32 and written in the activation type.  K3
 (``csrc/attention.cu``) has two pairs of entries: the short ones keep whole
 score rows on chip (N <= ``SHORT_TOKENS``, D in ``SHORT_HEAD_DIMS``); the
-long ones take any N in two passes over key tiles (an exact softmax, not
-online rescaling) at the head dims of ``LONG_HEAD_DIMS``.  Tensor-core
-``mma.sync`` products in bf16, register-blocked FMAs in f32.
+long ones take any N over key tiles at the head dims of ``LONG_HEAD_DIMS``:
+in bf16 in two passes (an exact softmax, P normalised before its cast), in
+f32 at D 32 and 64 in one pass with online rescaling (no cast of P exists
+to be moved), at D 128 and 256 in two.  Tensor-core ``mma.sync`` products
+in bf16, register-blocked FMAs in f32.
 
 ``mha`` launches K3 for CUDA tensors and runs the plain PyTorch version for
 CPU tensors.  Layout is token-major (B, N, H, D), as in the JAX package.

@@ -8,6 +8,10 @@ here; the kernels themselves are held against this plain version on the
 card by chip_smoke.py (with every input at the start of a NaN-filled
 allocation, so a read out of bounds shows)."""
 
+import math
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,3 +143,68 @@ def test_padding_the_head_dim_leaves_attention_exact(rng):
     want = attention.mha_plain(q, k, v, 80**-0.5)
     got = attention.mha_plain(*attention._staged(q, k, v, 128), 80**-0.5)[..., :80]
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _online_tile_width() -> int:
+    """Keys a tile of the one-pass f32 kernel (``F1_KT`` in csrc/attention.cu)."""
+    src = (Path(attention.__file__).parent.parent / "csrc" / "attention.cu").read_text()
+    return int(re.search(r"constexpr int F1_KT = (\d+);", src).group(1))
+
+
+def _online_emulation(q, k, v, scale, kt):
+    """The one-pass f32 kernel's order of operations in plain torch f32, on
+    (B, N, H, D) tensors: key tiles of ``kt`` keys, the last cut to the
+    narrowest of kt/2, kt/4, ... (down to 8) that holds the rest and its
+    keys past N masked to -inf; per tile the running max (scaled by c =
+    scale log2(e), -inf before the first tile) raised to the tile's, the
+    sums and accumulators rescaled by 2^(m_old - m_new), P = 2^(c s - m)
+    unnormalised into P V; one divide by the row sum at the end."""
+    b, n, h, d = q.shape
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, N, D)
+    c = scale * math.log2(math.e)
+    m = torch.full((b, h, n, 1), -math.inf)
+    lsum = torch.zeros((b, h, n, 1))
+    acc = torch.zeros((b, h, n, d))
+    for key0 in range(0, n, kt):
+        width = kt
+        while width > 8 and n - key0 <= width // 2:
+            width //= 2
+        real = min(width, n - key0)
+        s = qf @ kf[:, :, key0:key0 + real].transpose(-1, -2)
+        s = torch.cat([s, torch.full((b, h, n, width - real), -math.inf)], dim=-1)
+        vt = torch.cat([vf[:, :, key0:key0 + real], torch.zeros((b, h, width - real, d))], dim=-2)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s * c - mn)
+        lsum = lsum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p @ vt
+        m = mn
+    return (acc / lsum).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("b,n,h,d,boost", [(2, 577, 2, 64, 1.0), (2, 641, 2, 32, 1.0), (1, 257, 2, 64, 1.0),
+                                           # scores x 8 (q scaled, so the same program): rescaling under stress
+                                           (2, 577, 2, 64, 8.0)])
+def test_one_pass_online_rescaling_matches_pallas_and_plain_f32(rng, b, n, h, d, boost):
+    """The long f32 kernel at D 32 and 64 runs one pass with online
+    rescaling instead of an exact softmax; in f32 no cast of P exists, so
+    only the rounding order moves: its emulation stays within the file's f32
+    bound of the Pallas kernel and within 1e-5 of max |plain| of mha_plain."""
+    q, k, v = (rng.normal(size=(b, n, h, d)).astype(np.float32) for _ in range(3))
+    q = (q * boost).astype(np.float32)
+    want, _ = _run(q, k, v, jnp.float32, torch.float32, d**-0.5)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = _online_emulation(tq, tk, tv, d**-0.5, _online_tile_width()).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    plain = attention.mha_plain(tq, tk, tv, d**-0.5).numpy()
+    assert np.abs(got - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
+@pytest.mark.parametrize("n", [264, 265, 272, 273, 288, 289])
+def test_one_pass_ragged_last_tile_matches_plain_f32(rng, n):
+    """N at the edges of the last tile's widths (8, 16, 32 and 64 keys past
+    a multiple of 64): the emulation within 1e-5 of max |plain|."""
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, 2, 32)).astype(np.float32)) for _ in range(3))
+    got = _online_emulation(q, k, v, 32**-0.5, _online_tile_width())
+    plain = attention.mha_plain(q, k, v, 32**-0.5)
+    assert (got - plain).abs().max() <= 1e-5 * plain.abs().max()
