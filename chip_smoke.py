@@ -249,7 +249,8 @@ from relaxtpu_torch.model.mlp import Mlp, flax_init_
 from relaxtpu_torch.models.porters import mlp_from_jax
 from relaxtpu_torch.ops import attention as attention_mod
 from relaxtpu_torch.ops.attention import mha, mha_plain
-from relaxtpu_torch.ops.boxsolve import STRIP_WINSIZE, box_blur_solve, box_blur_solve_plain
+from relaxtpu_torch.ops import boxsolve as boxsolve_mod
+from relaxtpu_torch.ops.boxsolve import GENERIC_WINSIZE, STRIP_WINSIZE, box_blur_solve, box_blur_solve_plain
 from relaxtpu_torch.ops.colorspace import bgr_to_gray
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
@@ -281,8 +282,12 @@ K1_FLOPS_PER_PX = 80    # corner weights, 5-plane gather, averaging, flow terms,
 LONG_ATTN_SHAPE = (FRAMES + 2 * PAIRS, 577, 12, 64)  # ViT-B/16 at 384x384
 RING_EDGES = (383, 384, 385, 640, 641)  # about 3 query blocks of 128 (6 of 64) and 10 key tiles of 64
 TAIL_EDGES = (264, 265, 272, 273, 288, 289)  # the f32 one-pass kernel's last tile: 8 | 16 | 32 | 64 keys
-WIDE_WINDOWS = (19, 21, 31, 63)  # K2 past the strip kernel's largest window
+# K2 past the strip kernel's largest window: the generic-radius kernel at its plan's changes (R4 = R
+# rounded up to 4 steps at 19, 27, 35; R odd pads the ring by 2 rows) and its largest window; the pair
+# of kernels above it
+WIDE_WINDOWS = (19, 21, 23, 25, 27, 31, 33, 35, 63, GENERIC_WINSIZE, GENERIC_WINSIZE + 2)
 WIDE_WINSIZE = 21                # the slice's flow window
+PAIR_WINSIZE = GENERIC_WINSIZE + 2  # the pair of kernels' flow window
 
 
 def k2_flops_per_px(winsize: int = 15) -> int:
@@ -314,21 +319,59 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fns: list, passes: int = 5) -> float | None:
-    """Summed device time of the work that the calls in ``fns`` launch, in
-    ms per pass over them, from torch.profiler's CUDA activity (no host or
-    launch time); None when the profiler saw no device activity."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
+def kernel_records(fns: list, passes: int) -> list:
+    """(name, us) of every CUDA kernel record torch.profiler kept over
+    ``passes`` passes over ``fns``."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(passes):
             for fn in fns:
                 fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / passes if us > 0 else None
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fns: list, per_call: int | None = 1, passes: int = 10, tries: int = 3) -> float | None:
+    """Summed device time of the work that the calls in ``fns`` launch, in
+    ms per pass over them, from torch.profiler's CUDA activity (no host or
+    launch time).
+
+    The profiler drops kernel records: after the main path's first video,
+    some of every session's, more as the process goes on.  So each call is
+    profiled on its own and each kernel function it launches is timed by the
+    mean of its records kept (every pass repeats the same work).  A call of
+    this repo's kernels launches ``per_call`` kernels, each a different
+    function: its records are counted against passes x per_call, and a call
+    whose records lack one of its functions, or hold more launches than
+    that, is profiled again, ``tries`` times in all, then gives None, and
+    the caller quotes events.  For a library call (``per_call`` None) a
+    function's launches a call are its records over the passes, rounded.
+    Calls with records missing are named."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    total, short = 0.0, []
+    for i, fn in enumerate(fns):
+        for _ in range(tries):
+            recs = kernel_records([fn], passes)
+            by_name: dict = {}
+            for name, us in recs:
+                by_name.setdefault(name, []).append(us)
+            if per_call is None or (len(by_name) == per_call and len(recs) <= passes * per_call):
+                break
+        else:
+            print(f"  device_ms: call {i} kept {len(recs)} kernel records of {passes * per_call} launched, of "
+                  f"{len(by_name)} functions ({per_call} expected), in each of {tries} profiles: no device time "
+                  f"(quote events)")
+            return None
+        launches = {name: 1 if per_call else max(1, round(len(v) / passes)) for name, v in by_name.items()}
+        if len(recs) < passes * sum(launches.values()):
+            short.append(f"{i}: {len(recs)} of {passes * sum(launches.values())}")
+        total += sum(sum(v) / len(v) * launches[name] for name, v in by_name.items())
+    if short:
+        print(f"  device_ms: the profiler dropped records of {len(short)} of {len(fns)} calls (call: records kept) "
+              f"{' '.join(short)}: their functions' means of the records kept stand")
+    return total / 1e3 if total > 0 else None
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -353,12 +396,13 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def nan_padded(t: torch.Tensor, extra: int = 4096) -> torch.Tensor:
-    """A contiguous copy of ``t`` at the start of a larger NaN-filled
-    allocation, so a read out of bounds poisons the result."""
-    buf = torch.full((t.numel() + extra,), float("nan"), dtype=t.dtype, device=t.device)
-    buf[: t.numel()].copy_(t.reshape(-1))
-    return buf[: t.numel()].view(t.shape)
+def nan_padded(t: torch.Tensor, extra: int = 4096, at: int = 0) -> torch.Tensor:
+    """A contiguous copy of ``t`` ``at`` elements into a larger NaN-filled
+    allocation, so a read out of bounds poisons the result (``at`` = 1: rows
+    that are not 16-byte aligned, for the kernels' 4-byte paths)."""
+    buf = torch.full((t.numel() + at + extra,), float("nan"), dtype=t.dtype, device=t.device)
+    buf[at : at + t.numel()].copy_(t.reshape(-1))
+    return buf[at : at + t.numel()].view(t.shape)
 
 
 class Laps:
@@ -383,7 +427,8 @@ def report_build(so: str) -> dict:
     """ptxas's registers and spills for every kernel function, and the count
     of tensor-core instructions (HMMA/HGMMA) in each K3 function's SASS
     (cuobjdump from the toolkit that built them); raises if a bf16 K3
-    function, short or long, has none."""
+    function, short or long, has none, or if the long K3 kernels or the
+    generic-radius K2 kernel spill."""
     funcs = {}
     for src in ("warp.cu", "boxsolve.cu", "attention.cu"):
         name = None
@@ -405,7 +450,7 @@ def report_build(so: str) -> dict:
         elif name and "mha" in name and re.search(r"\bHG?MMA\b", line):
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
-        kernel = re.search(r"(update_matrices|box_blur_solve|box_rows|box_cols_solve|mha_bf16(_long|_ring)?"
+        kernel = re.search(r"(update_matrices|box_blur_solve|box_ring_solve|box_rows|box_cols_solve|mha_bf16(_long|_ring)?"
                            r"|mha_f32(_long|_online)?)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
@@ -413,33 +458,60 @@ def report_build(so: str) -> dict:
         print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
     if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "mha_f32_online",
-                                                    "box_rows")):
-        raise AssertionError("the long K3 or the generic-radius K2 functions are missing from the build")
-    for kernel in ("mha_bf16_ring", "mha_f32_online"):
+                                                    "box_ring_solve", "box_rows")):
+        raise AssertionError("the long K3 or the generic-radius or wide-window K2 functions are missing "
+                             "from the build")
+    for kernel in ("mha_bf16_ring", "mha_f32_online", "box_ring_solve"):
         fs = {n: f for n, f in funcs.items() if kernel in n}
         if any("0 bytes spill stores" not in f.get("spill", "") for f in fs.values()):
-            raise AssertionError(f"the long K3 {kernel} kernel spills: {fs}")
+            raise AssertionError(f"the {kernel} kernel spills: {fs}")
     if not bf16_mha or not all(f.get("tensor_core_instructions") for f in bf16_mha):
         raise AssertionError("a bf16 K3 function has no tensor-core instructions in its SASS")
     return funcs
 
 
 # ------------------------------------------------------------------ phase 3
+def k2_route_counts() -> tuple:
+    return box_blur_solve.launches, box_blur_solve.generic_launches, box_blur_solve.wide_launches
+
+
+def check_k2_window(m: torch.Tensor, ws: int, label: str) -> float:
+    """K2 at a window past the strip kernel's against its plain version:
+    within ``TOL`` of max |plain|, bit-identical (both routes form the plain
+    version's sums in its order), and launched on the route ``_entry``
+    names; -> |kernel - plain|."""
+    n0 = k2_route_counts()
+    got, want = box_blur_solve(m, ws), box_blur_solve_plain(m, ws)
+    err, rel = rel_err(got, want)
+    check(f"K2 {label} winsize {ws}", rel, TOL["K2"], verbose=False)
+    generic = boxsolve_mod._entry(ws) == boxsolve_mod._GENERIC
+    if tuple(b - a for a, b in zip(n0, k2_route_counts())) != (1, int(generic), int(not generic)):
+        raise AssertionError(f"K2 {label} winsize {ws} did not launch the {'generic' if generic else 'wide'} route")
+    if err != 0:
+        raise AssertionError(f"K2 {label} winsize {ws}: |kernel - plain| {err}, not bit-identical")
+    return err
+
+
 def check_flow_kernels(gen: torch.Generator) -> dict:
     """K1 and K2 against their plain versions at the four 540p and 1080p
     levels and the 4K finest level, with
     per-pixel random flows up to +-40 px (many corners clipped, many pixels
     outside) and NaN-padded inputs; K2 also at ragged shapes, at other odd
-    windows, and at windows past the strip kernel's largest (19, 21, 31, 63)
-    on the 540p levels and the ragged shapes, each launching the
-    generic-radius kernel."""
-    worst = {"K1": 0.0, "K2": 0.0, "K2_generic": 0.0}
+    windows, and at the windows past the strip kernel's largest
+    (``WIDE_WINDOWS``) on the 540p levels and the ragged shapes, and, at
+    each, on P = 1 at the generic-radius kernel's strip edges (W in 1, 3, 4,
+    a strip less one, a strip and one more, 131; H 1 and below the window),
+    aligned and offset by one float; the largest |kernel - plain| of every
+    check printed (0: bit-identical), each launching the route ``_entry``
+    names."""
+    worst = {"K1": 0.0, "K2": 0.0, "K2_generic": 0.0, "K2_wide": 0.0}
     shapes = [(PAIRS, hk, wk, 15) for _, hk, wk in pyramid_levels(H, W)]
     shapes += [(PAIRS, hk, wk, 15) for _, hk, wk in pyramid_levels(H_HI, W_HI)]
     shapes += [(4, 2 * H_HI, 2 * W_HI, 15), (2, H_HI, W_HI, 5), (2, H_HI, W_HI, STRIP_WINSIZE)]
     shapes += [(2, 16, 20, 15), (2, 67, 131, 15), (2, 67, 131, 5), (PAIRS, 135, 240, 5),
                (2, 67, 131, STRIP_WINSIZE), (PAIRS, 135, 240, STRIP_WINSIZE)]
     wide = {(PAIRS, hk, wk) for _, hk, wk in pyramid_levels(H, W)} | {(2, 16, 20), (2, 67, 131)}
+    errs = {ws: {} for ws in WIDE_WINDOWS}  # window -> shape -> |kernel - plain|
     for p, hk, wk, ws in shapes:
         r0 = torch.randn((p, 5, hk, wk), generator=gen, device="cuda") * 50
         r1 = torch.randn((p, 5, hk, wk), generator=gen, device="cuda") * 50
@@ -456,25 +528,34 @@ def check_flow_kernels(gen: torch.Generator) -> dict:
         if (p, hk, wk) in wide and ws == 15:
             wide.discard((p, hk, wk))
             for wws in WIDE_WINDOWS:
-                n0 = box_blur_solve.generic_launches
-                err, rel = rel_err(box_blur_solve(m, wws), box_blur_solve_plain(m, wws))
-                check(f"K2 {p}x{hk}x{wk} winsize {wws} (generic radius)", rel, TOL["K2"])
-                worst["K2_generic"] = max(worst["K2_generic"], err)
-                if box_blur_solve.generic_launches != n0 + 1:
-                    raise AssertionError(f"K2 winsize {wws} did not launch the generic-radius kernel")
+                errs[wws][f"{p}x{hk}x{wk}"] = check_k2_window(m, wws, f"{p}x{hk}x{wk}")
         del r0, r1, flow, m
         torch.cuda.empty_cache()
     if wide:
         raise AssertionError(f"no K2 check at wide windows for {wide}")
+    for wws in WIDE_WINDOWS:
+        strip = boxsolve_mod.RING_SPAN - 2 * ((wws // 2 + 3) & ~3)  # the plan's widest strip
+        for hk in (1, wws - 2):
+            for wk in (1, 3, 4, strip - 1, strip, strip + 1, 131):
+                m = torch.randn((1, 5, hk, wk), generator=gen, device="cuda") * 50
+                for tag, mm in (("", nan_padded(m)), (" offset", nan_padded(m, at=1))):
+                    errs[wws][f"1x{hk}x{wk}{tag}"] = check_k2_window(mm, wws, f"1x{hk}x{wk}{tag}")
+        route = "generic" if boxsolve_mod._entry(wws) == boxsolve_mod._GENERIC else "wide"
+        worst[f"K2_{route}"] = max([worst[f"K2_{route}"], *errs[wws].values()])
+        print(f"  K2 winsize {wws} ({route} route): largest |kernel - plain| {max(errs[wws].values()):g} over "
+              f"{len(errs[wws])} checks; by shape (P x H x W, o: one float into the allocation): "
+              + " ".join(f"{k.replace(' offset', 'o')}:{v:g}" for k, v in errs[wws].items()))
+    n0 = k2_route_counts()
     m = torch.rand((1, 5, 16, 16), device="cuda")
-    n0 = (box_blur_solve.launches, box_blur_solve.generic_launches)
-    box_blur_solve(m, STRIP_WINSIZE)
-    box_blur_solve(m, STRIP_WINSIZE + 2)
-    n1 = (box_blur_solve.launches - n0[0], box_blur_solve.generic_launches - n0[1])
-    print(f"  K2 winsize {STRIP_WINSIZE} then {STRIP_WINSIZE + 2}: launches {n1[0]}, of them generic {n1[1]}")
-    if n1 != (2, 1):
-        raise AssertionError(f"K2 routing: winsize {STRIP_WINSIZE} must take the strip kernel and "
-                             f"{STRIP_WINSIZE + 2} the generic one, got (launches, generic) {n1}")
+    for ws in (STRIP_WINSIZE, STRIP_WINSIZE + 2, GENERIC_WINSIZE, GENERIC_WINSIZE + 2):
+        box_blur_solve(m, ws)
+    n1 = tuple(b - a for a, b in zip(n0, k2_route_counts()))
+    print(f"  K2 winsize {STRIP_WINSIZE}, {STRIP_WINSIZE + 2}, {GENERIC_WINSIZE} and {GENERIC_WINSIZE + 2}: "
+          f"launches {n1[0]}, of them generic {n1[1]}, wide {n1[2]}")
+    if n1 != (4, 2, 1):
+        raise AssertionError(f"K2 routing: winsize {STRIP_WINSIZE} must take the strip kernel, "
+                             f"{STRIP_WINSIZE + 2} and {GENERIC_WINSIZE} the generic one and "
+                             f"{GENERIC_WINSIZE + 2} the pair, got (launches, generic, wide) {n1}")
     return worst
 
 
@@ -591,7 +672,7 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
         r["bound_ms"], r["bound_by"] = bound(
             r["bytes"], r["flops"], args[0].dtype)
         r["device_ms"] = device_ms(kernel_fns)
-        r["library_device_ms"] = device_ms(library_fns) if library_fns else None
+        r["library_device_ms"] = device_ms(library_fns, per_call=None) if library_fns else None
         print(f"  {key} {tag} {label}: {r['calls']} calls (largest error / max |plain| {r['rel']:.3e}), "
               f"{r['ms']:.4f} ms "
               f"(device only {r['device_ms']}; plain {r['plain_ms']:.4f}; library {r['library_ms']}, "
@@ -666,45 +747,67 @@ def counts() -> dict:
 
 
 def slice_counts() -> dict:
-    """The launches of the entries this slice added, a part of ``counts()``'s:
-    the generic-radius K2 (winsize > 17) and the long K3 (N > 256 or D not
-    32 or 64)."""
-    return {"K2_generic": box_blur_solve.generic_launches, "K3_long": mha.long_launches}
+    """The launches of the entries the later slices added, a part of
+    ``counts()``'s: the generic-radius K2 (winsize 19 to 65), the pair of
+    K2 kernels above it, and the long K3 (N > 256 or D not 32 or 64)."""
+    return {"K2_generic": box_blur_solve.generic_launches, "K2_wide": box_blur_solve.wide_launches,
+            "K3_long": mha.long_launches}
 
 
 def reset_counts() -> None:
     update_matrices.launches = box_blur_solve.launches = mha.launches = 0
-    box_blur_solve.generic_launches = mha.long_launches = 0
+    box_blur_solve.generic_launches = box_blur_solve.wide_launches = mha.long_launches = 0
 
 
-def time_k2_generic(recorded: list) -> dict:
-    """K2 at ``WIDE_WINSIZE`` on the main path's recorded M planes (the
-    generic-radius kernel) beside the strip kernel at the recorded window,
-    summed over the calls: ms by events, device ms by the profiler, the
-    plain version's ms, the generic kernel held against its plain version,
-    and its bound."""
+def time_k2_wide(recorded: list, winsize: int) -> dict:
+    """K2 at ``winsize`` (past the strip kernel's largest) on the main path's
+    recorded M planes beside the strip kernel at the recorded window, summed
+    over the calls and by pyramid level (its three calls): ms by events,
+    device ms by the profiler (``device_ms``: each call profiled on its own,
+    its kernel records counted), the plain version's ms, the kernel held
+    against its plain version, and its bound.  At the small levels a call's
+    events time the host's wrapper, not the device."""
     r = {"calls": len(recorded), "err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0, "strip_ms": 0.0,
-         "bytes": 0.0, "flops": 0.0, "library_ms": None}
-    generic_fns, strip_fns = [], []
+         "bytes": 0.0, "flops": 0.0, "library_ms": None, "levels": {}}
+    per_call = 2 if boxsolve_mod._entry(winsize) == boxsolve_mod._WIDE else 1
+    by_level = {}
     for args, kwargs in recorded:
         m, ws = args[0], kwargs.get("winsize", args[1] if len(args) > 1 else 15)
-        err, rel = rel_err(box_blur_solve(m, WIDE_WINSIZE), box_blur_solve_plain(m, WIDE_WINSIZE))
-        check(f"K2 winsize {WIDE_WINSIZE} on main-path input {tuple(m.shape)}", rel, TOL["K2"], verbose=False)
+        err, rel = rel_err(box_blur_solve(m, winsize), box_blur_solve_plain(m, winsize))
+        check(f"K2 winsize {winsize} on main-path input {tuple(m.shape)}", rel, TOL["K2"], verbose=False)
         r["err"], r["rel"] = max(r["err"], err), max(r["rel"], rel)
-        generic_fns.append(lambda m=m: box_blur_solve(m, WIDE_WINSIZE))
-        strip_fns.append(lambda m=m, ws=ws: box_blur_solve(m, ws))
-        r["ms"] += cuda_ms(generic_fns[-1])
-        r["strip_ms"] += cuda_ms(strip_fns[-1])
-        r["plain_ms"] += cuda_ms(lambda m=m: box_blur_solve_plain(m, WIDE_WINSIZE), iters=5)
+        fn, strip_fn = (lambda m=m: box_blur_solve(m, winsize)), (lambda m=m, ws=ws: box_blur_solve(m, ws))
+        ms, strip_ms = cuda_ms(fn), cuda_ms(strip_fn)
+        r["ms"] += ms
+        r["strip_ms"] += strip_ms
+        r["plain_ms"] += cuda_ms(lambda m=m: box_blur_solve_plain(m, winsize), iters=5)
         px = m.shape[0] * m.shape[-2] * m.shape[-1]
         r["bytes"] += px * 7 * 4
-        r["flops"] += px * k2_flops_per_px(WIDE_WINSIZE)
+        r["flops"] += px * k2_flops_per_px(winsize)
+        lv = by_level.setdefault("x".join(map(str, m.shape)), {"calls": 0, "ms": 0.0, "strip_ms": 0.0,
+                                                              "fns": [], "strip_fns": []})
+        lv["calls"] += 1
+        lv["ms"] += ms
+        lv["strip_ms"] += strip_ms
+        lv["fns"].append(fn)
+        lv["strip_fns"].append(strip_fn)
     r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], torch.float32)
-    r["device_ms"], r["strip_device_ms"] = device_ms(generic_fns), device_ms(strip_fns)
-    print(f"  K2 generic radius at winsize {WIDE_WINSIZE} on the {r['calls']} main-path inputs: {r['ms']:.4f} ms "
-          f"(device only {r['device_ms']}; plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.4f} by "
-          f"{r['bound_by']}; largest error / max |plain| {r['rel']:.3e}); the strip kernel at the recorded "
-          f"window {r['strip_ms']:.4f} ms (device only {r['strip_device_ms']})")
+    for shape, lv in by_level.items():
+        lv["device_ms"] = device_ms(lv.pop("fns"), per_call=per_call)
+        lv["strip_device_ms"] = device_ms(lv.pop("strip_fns"))
+        r["levels"][shape] = lv
+        print(f"    level {shape}: {lv['calls']} calls, {lv['ms']:.4f} ms by events, device only "
+              f"{lv['device_ms']}; the strip kernel at the recorded window {lv['strip_ms']:.4f}, device only "
+              f"{lv['strip_device_ms']}")
+    for key in ("device_ms", "strip_device_ms"):  # the levels' sums
+        r[key] = None if any(lv[key] is None for lv in r["levels"].values()) else sum(
+            lv[key] for lv in r["levels"].values())
+    share = f"{r['bound_ms'] / r['device_ms']:.1%}" if r["device_ms"] else "not measured"
+    print(f"  K2 winsize {winsize} ({'wide' if per_call == 2 else 'generic'} route) on the {r['calls']} main-path "
+          f"inputs: {r['ms']:.4f} ms by events (device only {r['device_ms']}; plain {r['plain_ms']:.4f}; bound "
+          f"{r['bound_ms']:.4f} by {r['bound_by']}, {share} of device ms; largest error / max |plain| "
+          f"{r['rel']:.3e}); the strip kernel at the recorded window {r['strip_ms']:.4f} ms (device only "
+          f"{r['strip_device_ms']})")
     return r
 
 
@@ -730,7 +833,7 @@ def time_long_attention(gen: torch.Generator) -> dict:
             check(f"K3 long {tag} {shape}", rel, TOL[f"K3_{tag}"])
             r = {"err": err, "rel": rel, "ms": cuda_ms(long_fn), "device_ms": device_ms([long_fn]),
                  "plain_ms": cuda_ms(lambda: mha_plain(q, k, v, scale), iters=5),
-                 "library_ms": cuda_ms(sdpa_fn), "library_device_ms": device_ms([sdpa_fn])}
+                 "library_ms": cuda_ms(sdpa_fn), "library_device_ms": device_ms([sdpa_fn], per_call=None)}
             r["bound_ms"], r["bound_by"] = bound(4.0 * b * n * h * d * q.element_size(), 4.0 * b * h * n * n * d, dtype)
             if n <= attention_mod.SHORT_TOKENS:
                 r["short_ms"] = cuda_ms(lambda: mha(q, k, v, scale))
@@ -746,13 +849,14 @@ def time_long_attention(gen: torch.Generator) -> dict:
     return out
 
 
-def check_wide_flow() -> dict:
-    """``farneback_flow`` at ``WIDE_WINSIZE`` on 2 pairs of the main path's
-    540p clip, CUDA against CPU, with the launches of the CUDA run (the
-    slice's path for the generic-radius K2) and its ms beside winsize 15."""
+def check_wide_flow(winsize: int) -> dict:
+    """``farneback_flow`` at ``winsize`` (past the strip kernel's largest) on
+    2 pairs of the main path's 540p clip, CUDA against CPU, with the launches
+    of the CUDA run (the path of the K2 route that takes the window) and its
+    ms beside winsize 15."""
     gray = bgr_to_gray(synthetic_bgr(4, H, W, seed=7))
     prev, nxt = gray[0::2].contiguous(), gray[1::2].contiguous()
-    params = dict(FARNEBACK_PARAMS, winsize=WIDE_WINSIZE)
+    params = dict(FARNEBACK_PARAMS, winsize=winsize)
     reset_counts()
     got = farneback_flow(prev, nxt, **params)
     torch.cuda.synchronize()
@@ -763,11 +867,13 @@ def check_wide_flow() -> dict:
            "max_err_px": err.max().item(), "max_abs_flow_px": want.abs().max().item(),
            "ms": cuda_ms(lambda: farneback_flow(prev, nxt, **params), iters=5),
            "ms_winsize_15": cuda_ms(lambda: farneback_flow(prev, nxt, **FARNEBACK_PARAMS), iters=5)}
-    print(f"  farneback_flow winsize {WIDE_WINSIZE}, 2 pairs at {H}x{W}: CUDA vs CPU mean {out['mean_err_px']:.3e} "
+    print(f"  farneback_flow winsize {winsize}, 2 pairs at {H}x{W}: CUDA vs CPU mean {out['mean_err_px']:.3e} "
           f"px, p99 {out['p99_err_px']:.3e}, max {out['max_err_px']:.3e} (bounds 1e-3, 1e-2: 5x inside the "
           f"0.05 px cv2 tolerance; largest |flow| {out['max_abs_flow_px']:.2f} px); launches {n}; "
           f"{out['ms']:.3f} ms (winsize 15: {out['ms_winsize_15']:.3f})")
-    want_n = {"K1": 12, "K2": 12, "K3": 0, "K2_generic": 12, "K3_long": 0}
+    generic = boxsolve_mod._entry(winsize) == boxsolve_mod._GENERIC
+    want_n = {"K1": 12, "K2": 12, "K3": 0, "K2_generic": 12 * generic, "K2_wide": 12 * (not generic),
+              "K3_long": 0}
     if n != want_n:
         raise AssertionError(f"wide-window flow: expected launches {want_n}, got {n}")
     if not (out["mean_err_px"] <= 1e-3 and out["p99_err_px"] <= 1e-2) or not torch.isfinite(got).all():
@@ -824,8 +930,9 @@ def run_main_path() -> dict:
             "warm_ms": times, "max_memory_allocated": peak, "kernels": kernels, "vec": vec,
         }
         if tag == "bf16":
-            out[tag]["k2_generic"] = time_k2_generic(calls["K2"])
-            lap("bf16 generic K2 on the recorded inputs")
+            out[tag]["k2_generic"] = time_k2_wide(calls["K2"], WIDE_WINSIZE)
+            out[tag]["k2_wide"] = time_k2_wide(calls["K2"], PAIR_WINSIZE)
+            lap("bf16 generic and wide K2 on the recorded inputs")
         del fx, pred, kernels, calls
         torch.cuda.empty_cache()
     lap.show("phase 5")
@@ -2491,7 +2598,7 @@ def run_tools() -> dict:
                 print(f"  (a) {tag} ViT tokens at {hw[0]}x{hw[1]} ({tokens} tokens, the position table resized): "
                       f"CUDA vs CPU f32 {what}, launches {n}")
                 long = depth if tokens > attention_mod.SHORT_TOKENS else 0
-                want_n = {"K1": 0, "K2": 0, "K3": depth, "K2_generic": 0, "K3_long": long}
+                want_n = {"K1": 0, "K2": 0, "K3": depth, "K2_generic": 0, "K2_wide": 0, "K3_long": long}
                 if not ok or not tr["shape_ok"] or n != want_n:
                     raise AssertionError(f"(a) {tag} non-224 tokens at {hw}: {tr} (launches expected {want_n})")
             del fx
@@ -2584,7 +2691,8 @@ def main() -> int:
     lap3("flow live planes")
     long_attn = time_long_attention(gen)
     lap3("long K3 timing")
-    wide_flow = check_wide_flow()
+    wide_flow = check_wide_flow(WIDE_WINSIZE)
+    pair_flow = check_wide_flow(PAIR_WINSIZE)
     lap3("wide-window flow")
     lap3.show("phase 3")
     phase("3 kernels")
@@ -2657,14 +2765,19 @@ def main() -> int:
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
         })
-    r = main_res["bf16"]["k2_generic"]
-    kernels.append({
-        "name": f"K2 box_blur_solve generic radius (winsize {WIDE_WINSIZE})", "route": "cuda",
-        "source": sources["K2"][1], "replaces": sources["K2"][2],
-        "launches": wide_flow["launches"]["K2_generic"], "max_abs_err": max(r["err"], stress["K2_generic"]),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None, "device_ms": r["device_ms"], "library_device_ms": None,
-    })
+    # the K2 routes past the strip kernel's window, each with launches from its own flow path
+    for key, what, path in (("k2_generic", f"generic radius (box_ring_solve_kernel, winsize {WIDE_WINSIZE})",
+                             wide_flow),
+                            ("k2_wide", f"wide window (box_rows_kernel + box_cols_solve_kernel, winsize "
+                                        f"{PAIR_WINSIZE})", pair_flow)):
+        r, route = main_res["bf16"][key], key.replace("k2", "K2")
+        kernels.append({
+            "name": f"K2 box_blur_solve {what}", "route": "cuda",
+            "source": sources["K2"][1], "replaces": sources["K2"][2],
+            "launches": path["launches"][route], "max_abs_err": max(r["err"], stress[route]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "device_ms": r["device_ms"], "library_device_ms": None,
+        })
 
     with open(os.path.join(WORK_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2672,7 +2785,7 @@ def main() -> int:
                    "seconds": {"phases": phase.seconds, "phase_3": lap3.seconds},
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
-                   "long_attention": long_attn, "wide_window_flow": wide_flow,
+                   "long_attention": long_attn, "wide_window_flow": wide_flow, "pair_window_flow": pair_flow,
                    "main_path": main_res, "serving": serving, "training": training,
                    "extraction": extraction, "ingest": ingest, "mesh": mesh, "tools": tools}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,10 @@ checkout (named by a hash of the sources, so an edit rebuilds), and
 ``ctypes`` loads it.  Nothing here runs at import: the CPU-only test host
 has no ``nvcc``.
 
-Every C entry point takes device pointers and the CUDA stream as
-``void*``, launches on that stream, and returns ``cudaGetLastError()``.
+Every C entry point that launches takes device pointers and the CUDA
+stream as ``void*``, launches on that stream, and returns
+``cudaGetLastError()``; a query (``_QUERIES``) launches nothing and returns
+an int.
 """
 
 from __future__ import annotations
@@ -40,11 +42,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "relax_update_matrices": (_P, _P, _P, _P, _I, _I, _I, _P),
     "relax_box_blur_solve": (_P, _P, _I, _I, _I, _I, _P),
-    "relax_box_blur_solve_generic": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "relax_box_blur_solve_generic": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "relax_box_blur_solve_wide": (_P, _P, _P, _I, _I, _I, _I, _P),
     "relax_mha_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_f32_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_bf16_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
+}
+
+# queries: (argtypes) -> int
+_QUERIES = {
+    "relax_box_blur_solve_generic_slots": (_I,),
 }
 
 _lock = threading.Lock()
@@ -110,7 +118,7 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in (_SIGNATURES | _QUERIES).items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -129,6 +137,13 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def query(name: str, device: torch.device, *args) -> int:
+    """A query's result, with ``device`` current."""
+    fn = _fns.get(name) or getattr(lib(), name)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

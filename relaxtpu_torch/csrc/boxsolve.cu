@@ -34,18 +34,42 @@
 //   with products rounded as the plain version rounds them, and only the
 //   two flow planes are written, a warp storing 512 contiguous bytes.
 //
-// Windows above 17 (box_blur_solve_pallas takes any odd winsize; the strip
-// kernel's halo holds a radius of at most 8) take a generic-radius pair of
+// Windows 19 to 65 (box_blur_solve_pallas takes any odd winsize; the strip
+// kernel's halo span holds a radius of at most 8) take the generic-radius
+// kernel, box_ring_solve_kernel: the strip kernel's structure with the radius
+// R a run-time value, in one launch that reads M once and writes only the
+// flow (no scratch).
+// - A block of 256 threads takes (pair, strip of tw output columns, run of
+//   seg rows) and walks down it 16 output rows a step.  Each plane's input
+//   rows sit in a ring of ``rows`` = 16 + 2R rows (rounded up to 4) of a
+//   128-column span in dynamic shared memory: the strip plus R4 = R rounded
+//   up to 4 columns each side, so every 16-byte copy is aligned.  The plan
+//   (tw <= 128 - 2 R4, the widest that splits W into the fewest strips, and
+//   seg, whole waves of resident blocks) is ops/boxsolve.py::_ring_plan's.
+// - Every input row arrives once a run, by 16-byte cp.async (4-byte copies,
+//   clamped, at the image's edges or for widths that are not a multiple of
+//   4).  The planes are staged in turn: right after a step's vertical pass
+//   of plane c, plane c's next 16 rows go into the slots of the 16 it no
+//   longer needs, so a ring holds one step's window and no more (rows
+//   16 + 2R, not 32 + 2R), and they have the rest of the step to land.  One
+//   barrier a plane a step.
+// - Vertical sums: a thread takes a column and 8 rows, and slides a window
+//   of 8 registers down the column one row a tap, so each sum is formed in
+//   tap order from one shared load a tap and no compare an output (the
+//   loop runs 2R taps; its body, unrolled over the 8 rows, reads 4 ring rows
+//   at a time, which never straddle the ring's wrap: rows is a multiple of
+//   4).  The sums land in a row of vertical sums shifted by R4 - R, so the
+//   horizontal pass reads 16-byte chunks.
+// - Horizontal sums: a thread forms 4 consecutive outputs of a row from
+//   16-byte chunks of that row, taps again in order.
+// - The five box sums of a pixel stay in registers; the solve is the strip
+//   kernel's, so the result is the plain version's to the bit.
+// At R = 32 the rings take 200 KB (one block an SM); winsize 65 is the
+// largest the kernel takes (GRMAX).  Windows above 65 take a pair of
 // kernels: a vertical clamped-row box sum of the five planes into a scratch
 // buffer the wrapper allocates, then a horizontal clamped-column sum fused
-// with the 1/winsize^2 scale and the 2x2 solve.  The radius is a run-time
-// value, so the taps are read from global memory through L1, each once per
-// thread, and added into a run of outputs held in registers (16 rows of a
-// column in the vertical pass, 4 columns of a row in the horizontal one),
-// in the plain version's tap order: the result is the plain version's to
-// the bit.  It moves
-// 68 bytes a pixel (M read, the scratch written and read, the flow
-// written) against the function's 28: simple and right first.
+// with the scale and the solve, taps from global memory through L1 (68
+// bytes a pixel against the function's 28).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,6 +112,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Ring rows [from, to) of all five planes: ring row r holds image row
@@ -272,7 +301,266 @@ int launch(const float* m, float* flow, int P, int H, int W, float inv_area, boo
   return launch_tw<R, 128>(m, flow, P, H, W, inv_area, vec, stream);
 }
 
-// --------------------------------------------------------- generic radius
+// ------------------------------------------------- generic radius: one launch
+constexpr int GT = 256;    // threads a block
+constexpr int GTH = 16;    // output rows a step
+constexpr int GRS = 128;   // staged columns a ring row: tw + 2 R4 <= GRS
+constexpr int GRMAX = 32;  // largest radius (winsize 65)
+
+template <int TH, int RS>
+struct Ring {
+  static constexpr int VR = TH * RS / GT;                 // rows a thread sums in the vertical pass
+  static constexpr int VS = RS + 4;                       // vertical-sum row stride
+  static constexpr int HR = (TH * RS / 4 + GT - 1) / GT;  // 4-pixel runs a thread, at most
+  // ring rows a plane: one step's window, a multiple of 4
+  __host__ __device__ static constexpr int rows(int R) { return (TH + 2 * R + 3) & ~3; }
+  static constexpr size_t smem(int R) {
+    return sizeof(float) * ((size_t)5 * rows(R) * RS + 2 * TH * VS);
+  }
+  static_assert(VR % 4 == 0 && VR * GT == TH * RS && RS % 32 == 0, "a (column, VR rows) item a thread");
+};
+
+// ``n`` rows of the run's ring (image rows y0 .. y0 + n - 1, clamped: the
+// replicate border) of one plane into slots slot0, slot0 + 1, ... (mod
+// rows); columns gx0 .. gx0 + span - 1, clamped.  A thread keeps one 16-byte
+// column chunk and walks rows.
+template <int RS>
+__device__ __forceinline__ void ring_rows(float* ring, const float* plane, int H, int W, int y0,
+                                          int gx0, int span, int n, int slot0, int rows, bool vec) {
+  constexpr int C4 = RS / 4, LANES = GT / C4;
+  const int lane = threadIdx.x / C4, cc = 4 * (threadIdx.x % C4);
+  if (cc >= span) return;
+  const int gx = gx0 + cc;
+  const bool whole = vec && gx >= 0 && gx + 4 <= W;
+  int slot = slot0 + lane;
+  if (slot >= rows) slot -= rows;
+  for (int i = lane; i < n; i += LANES) {
+    const float* row = plane + (long long)min(max(y0 + i, 0), H - 1) * W;
+    float* dst = ring + slot * RS + cc;
+    if (whole) {
+      cp_async16(dst, row + gx);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(dst + e, row + min(max(gx + e, 0), W - 1));
+    }
+    slot += LANES;
+    if (slot >= rows) slot -= rows;
+  }
+}
+
+// The ring slot 4 rows on from ``slot`` (both multiples of 4, as rows is).
+__device__ __forceinline__ int next4(int slot, int rows) { return slot + 4 == rows ? 0 : slot + 4; }
+
+// One block of J consecutive ring rows of a column (J <= 4, never across the
+// wrap) into w[at .. at + J), each added as a tap to every output right
+// after it is loaded: tap t loads u(t + VR - 1) into w[(t - 1) % VR] and
+// adds u(y + t) = w[(y + t) % VR] to output y; ``at`` is (t - 1) % VR of
+// the block's first tap.  Every caller's loops are unrolled, so ``at`` and
+// the register indices are constants.
+template <int VR, int RS, int J>
+__device__ __forceinline__ void vtaps(float (&s)[VR], float (&w)[VR], const float* src, int at) {
+  float n[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) n[j] = src[j * RS];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    w[at + j] = n[j];
+#pragma unroll
+    for (int y = 0; y < VR; ++y) s[y] += w[(y + at + j + 1) % VR];
+  }
+}
+
+// s[y] = u(y) + u(y + 1) + ... + u(y + 2R) for y < VR, in that order: u(v)
+// is ring row slot + v (mod rows) of column ``col``.  A window of VR
+// registers slides down the column one row a tap.
+template <int VR, int RS>
+__device__ __forceinline__ void vsums(float (&s)[VR], const float* col, int slot, int rows, int R) {
+  float w[VR];
+#pragma unroll
+  for (int b = 0; b < VR / 4; ++b) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[4 * b + j] = col[(slot + j) * RS];
+    slot = next4(slot, rows);
+  }
+#pragma unroll
+  for (int y = 0; y < VR; ++y) s[y] = w[y];
+  int t = 2 * R;  // taps left
+  for (; t >= VR; t -= VR) {
+#pragma unroll
+    for (int b = 0; b < VR / 4; ++b) {
+      vtaps<VR, RS, 4>(s, w, col + slot * RS, 4 * b);
+      slot = next4(slot, rows);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < VR / 4; ++b) {  // t is even and below VR
+    if (4 * b + 4 <= t) {
+      vtaps<VR, RS, 4>(s, w, col + slot * RS, 4 * b);
+      slot = next4(slot, rows);
+    } else if (4 * b + 2 == t) {
+      vtaps<VR, RS, 2>(s, w, col + slot * RS, 4 * b);
+    }
+  }
+}
+
+__device__ __forceinline__ void ld4(float (&a)[4], const float* p) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  a[0] = f.x;
+  a[1] = f.y;
+  a[2] = f.z;
+  a[3] = f.w;
+}
+
+// Taps 4g + 1 .. 4g + J of outputs i < 4 from chunks a = g, b = g + 1.
+template <int J>
+__device__ __forceinline__ void htaps(float (&s)[4], const float (&a)[4], const float (&b)[4]) {
+#pragma unroll
+  for (int j = 1; j <= J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] += i + j < 4 ? a[i + j] : b[i + j - 4];
+}
+
+// s[i] = v(i) + v(i + 1) + ... + v(i + 2R) for i < 4, in that order, v read
+// from p (16-byte aligned) by 16-byte chunks; 2R = 4n + 2(R & 1).  Reads at
+// most v(2R + 7).
+__device__ __forceinline__ void hsums(float (&s)[4], const float* p, int R) {
+  float a[4], b[4];
+  ld4(a, p);
+  ld4(b, p + 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = a[i];
+  int n = R >> 1;  // whole groups of 4 taps
+  p += 8;
+  for (; n >= 2; n -= 2, p += 8) {  // two groups a trip, the chunks' roles swapped
+    htaps<4>(s, a, b);
+    ld4(a, p);
+    htaps<4>(s, b, a);
+    ld4(b, p + 4);
+  }
+  if (n) {
+    htaps<4>(s, a, b);
+    ld4(a, p);
+    if (R & 1) htaps<2>(s, b, a);
+  } else if (R & 1) {
+    htaps<2>(s, a, b);
+  }
+}
+
+// grid: (strips of tw columns, runs of ``seg`` rows, pairs)
+template <int TH, int RS>
+__global__ void __launch_bounds__(GT, 2)
+box_ring_solve_kernel(const float* __restrict__ m, float* __restrict__ out, int H, int W, int R,
+                      int tw, int seg, float inv_area, bool vec) {
+  using G = Ring<TH, RS>;
+  constexpr int VR = G::VR, VS = G::VS, HR = G::HR;
+  extern __shared__ __align__(16) float smem[];
+  const int rows = G::rows(R);
+  float* const vsum = smem + 5 * rows * RS;  // 2 x TH x VS, alternating planes
+  const int tid = threadIdx.x;
+  const int r4 = (R + 3) & ~3, off = r4 - R, span = tw + 2 * r4;
+  const int x0 = blockIdx.x * tw, ys = blockIdx.y * seg, ye = min(ys + seg, H);
+  const int steps = (ye - ys + TH - 1) / TH;
+  const long long hw = (long long)H * W;
+  const float* const mp = m + (long long)blockIdx.z * 5 * hw;
+
+  // ring row r holds image row ys - R + r; step k reads rows [TH k, TH k + TH + 2R)
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {  // a commit group a plane
+    ring_rows<RS>(smem + c * rows * RS, mp + c * hw, H, W, ys - R, x0 - r4, span, TH + 2 * R, 0, rows,
+                  vec);
+    cp_async_commit();
+  }
+  cp_async_wait<4>();
+  __syncthreads();
+
+  const int vcol = tid % RS, vy0 = VR * (tid / RS);
+  int hrow[HR], hx[HR];  // this thread's 4-pixel runs: row of the step, first column
+#pragma unroll
+  for (int e = 0; e < HR; ++e) {
+    const int u = tid + GT * e;
+    hrow[e] = u / (tw / 4);
+    hx[e] = 4 * (u % (tw / 4));
+  }
+  int vslot = vy0;  // the slot of ring row TH k + vy0
+  for (int k = 0; k < steps; ++k) {
+    const int fill = (TH * (k + 1) + 2 * R) % rows;  // the slot of the next step's first new row
+    float acc[5][HR][4];                              // the five box sums of this thread's runs
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      float* const ring = smem + c * rows * RS;
+      float* const vs = vsum + ((k + c) & 1) * TH * VS;
+      if (vcol < span) {
+        float s[VR];
+        vsums<VR, RS>(s, ring + vcol, vslot, rows, R);
+        if (vcol >= off) {  // vs[y][q] sums column x0 - R + q
+#pragma unroll
+          for (int y = 0; y < VR; ++y) vs[(vy0 + y) * VS + vcol - off] = s[y];
+        }
+      }
+      // The next plane's rows (or plane 0's of the next step) have landed;
+      // after the barrier every thread sees them and vs, plane c's oldest
+      // TH rows are free, and plane c - 1's horizontal pass is done with the
+      // other buffer, which plane c + 1 writes.
+      cp_async_wait<3>();
+      __syncthreads();
+      if (k + 1 < steps)
+        ring_rows<RS>(ring, mp + c * hw, H, W, ys - R + TH * (k + 1) + 2 * R, x0 - r4, span, TH, fill,
+                      rows, vec);
+      cp_async_commit();  // every trip, so the count of groups in flight stays 3
+#pragma unroll
+      for (int e = 0; e < HR; ++e)
+        if (hrow[e] < TH) hsums(acc[c][e], vs + hrow[e] * VS + hx[e], R);
+    }
+    vslot += TH;
+    if (vslot >= rows) vslot -= rows;
+
+#pragma unroll
+    for (int e = 0; e < HR; ++e) {
+      const int y = ys + TH * k + hrow[e], xb = x0 + hx[e];
+      if (hrow[e] >= TH || y >= ye || xb >= W) continue;
+      float dx[4], dy[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // the plain version's roundings, as in the strip kernel
+        const float g11 = __fmul_rn(acc[0][e][i], inv_area), g12 = __fmul_rn(acc[1][e][i], inv_area);
+        const float g22 = __fmul_rn(acc[2][e][i], inv_area), h1 = __fmul_rn(acc[3][e][i], inv_area);
+        const float h2 = __fmul_rn(acc[4][e][i], inv_area);
+        const float idet = 1.0f / (__fmul_rn(g11, g22) - __fmul_rn(g12, g12) + 1e-3f);
+        dx[i] = __fmul_rn(__fmul_rn(g11, h2) - __fmul_rn(g12, h1), idet);
+        dy[i] = __fmul_rn(__fmul_rn(g22, h1) - __fmul_rn(g12, h2), idet);
+      }
+      float* ox = out + (long long)blockIdx.z * 2 * hw + (long long)y * W + xb;
+      float* oy = ox + hw;
+      if (vec && xb + 4 <= W) {
+        *reinterpret_cast<float4*>(ox) = make_float4(dx[0], dx[1], dx[2], dx[3]);
+        *reinterpret_cast<float4*>(oy) = make_float4(dy[0], dy[1], dy[2], dy[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (xb + i < W) {
+            ox[i] = dx[i];
+            oy[i] = dy[i];
+          }
+        }
+      }
+    }
+  }
+}
+
+using GRing = Ring<GTH, GRS>;
+
+// The opt-in above 48 KB, once per device, at the largest size the kernel
+// takes (R = GRMAX); a CUDA error or 0.
+int ring_opt_in(int dev) {
+  static PerDevice opted;
+  return once_per_device(opted, dev, [] {
+    return (int)cudaFuncSetAttribute(box_ring_solve_kernel<GTH, GRS>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)GRing::smem(GRMAX));
+  });
+}
+
+// ---------------------------------------------- windows above 65: two passes
 constexpr int GX = 128;  // threads a block in both passes
 constexpr int GR = 16;   // output rows a thread in the vertical pass
 constexpr int GC = 4;    // output columns a thread in the horizontal pass
@@ -345,10 +633,53 @@ box_cols_solve_kernel(const float* __restrict__ vsum, float* __restrict__ out, i
 
 }  // namespace
 
+// m: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32; winsize odd, at most 65;
+// tw and seg: the plan of ops/boxsolve.py::_ring_plan (tw a multiple of 4
+// with tw + 2 R4 <= 128, seg a multiple of 16).
+extern "C" int relax_box_blur_solve_generic(const void* m, void* flow, int P, int H, int W,
+                                            int winsize, int tw, int seg, void* stream) {
+  const int R = winsize / 2, r4 = (R + 3) & ~3;
+  if (winsize < 1 || winsize % 2 != 1 || R > GRMAX || P < 1 || P > 65535 || H < 1 || W < 1 ||
+      tw < 4 || tw % 4 != 0 || tw + 2 * r4 > GRS || seg < GTH || seg % GTH != 0 ||
+      (H + seg - 1) / seg > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  const int attr = ring_opt_in(dev);
+  if (attr != cudaSuccess) return attr;
+  // 16-byte loads and stores need 16-byte aligned rows
+  const bool vec = W % 4 == 0 && ((uintptr_t)m | (uintptr_t)flow) % 16 == 0;
+  const float inv_area = (float)(1.0 / ((double)winsize * winsize));
+  const dim3 grid((unsigned)((W + tw - 1) / tw), (unsigned)((H + seg - 1) / seg), (unsigned)P);
+  box_ring_solve_kernel<GTH, GRS><<<grid, GT, GRing::smem(R), (cudaStream_t)stream>>>(
+      (const float*)m, (float*)flow, H, W, R, tw, seg, inv_area, vec);
+  return (int)cudaGetLastError();
+}
+
+// The generic-radius kernel's resident blocks on the current device at this
+// winsize (SMs x blocks an SM), once per device and radius; minus a CUDA
+// error.
+extern "C" int relax_box_blur_solve_generic_slots(int winsize) {
+  const int R = winsize / 2;
+  if (winsize < 1 || winsize % 2 != 1 || R > GRMAX) return -(int)cudaErrorInvalidValue;
+  const int dev = current_device();
+  if (dev < 0) return -(int)cudaErrorInvalidDevice;
+  const int attr = ring_opt_in(dev);
+  if (attr != cudaSuccess) return -attr;
+  static PerDevice resident[GRMAX + 1];
+  return once_per_device(resident[R], dev, [dev, R] {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, box_ring_solve_kernel<GTH, GRS>, GT,
+                                                  GRing::smem(R));
+    return sms * max(per_sm, 1);
+  });
+}
+
 // m: (P, 5, H, W) f32, scratch: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32;
-// any odd winsize.
-extern "C" int relax_box_blur_solve_generic(const void* m, void* scratch, void* flow, int P,
-                                            int H, int W, int winsize, void* stream) {
+// any odd winsize (the route above 65).
+extern "C" int relax_box_blur_solve_wide(const void* m, void* scratch, void* flow, int P, int H,
+                                         int W, int winsize, void* stream) {
   if (winsize < 1 || winsize % 2 != 1 || 5LL * P > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const int R = winsize / 2;

@@ -6,10 +6,17 @@ a winsize x winsize replicate-border box sum of the five normal-equation
 planes, times 1/winsize^2, then the per-pixel 2x2 solve.  K2
 (``csrc/boxsolve.cu``) forms the direct sums in the plain version's tap
 order and writes only the two flow planes.  Like the Pallas kernel it takes
-any odd winsize: up to ``STRIP_WINSIZE`` the strip kernel (its halo span
-holds a radius of at most 8), above it the generic-radius pair of kernels
-(a vertical box sum into a scratch buffer, then the horizontal sum fused
-with the solve).
+any odd winsize, by three routes (``_entry``):
+
+- up to ``STRIP_WINSIZE`` the strip kernel, whose radius is a compile-time
+  value (its halo span holds a radius of at most 8);
+- up to ``GENERIC_WINSIZE`` the generic-radius kernel: the strip kernel's
+  structure with a run-time radius, in one launch with no scratch buffer
+  (each plane's input rows in a shared-memory ring of 16 + 2R rows, staged
+  plane by plane), on the plan of ``_ring_plan``;
+- above it, where the rings no longer fit in a block's shared memory, a
+  pair of kernels: a vertical box sum into a scratch buffer, then the
+  horizontal sum fused with the solve.
 
 ``box_blur_solve`` launches K2 for CUDA tensors and runs the plain PyTorch
 version for CPU tensors: M (P, 5, H, W) f32 -> flow (P, 2, H, W) f32.
@@ -17,19 +24,66 @@ version for CPU tensors: M (P, 5, H, W) f32 -> flow (P, 2, H, W) f32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from relaxtpu_torch import _native
 
 STRIP_WINSIZE = 17  # the strip kernel's halo span holds a radius of at most 8
-_STRIP, _GENERIC = "relax_box_blur_solve", "relax_box_blur_solve_generic"
+GENERIC_WINSIZE = 65  # the generic-radius kernel's rings fit a block up to radius 32
+RING_ROWS = 16  # the generic-radius kernel's output rows a step
+RING_SPAN = 128  # its staged columns a ring row: the strip plus R rounded up to 4 each side
+_STRIP, _GENERIC, _WIDE = "relax_box_blur_solve", "relax_box_blur_solve_generic", "relax_box_blur_solve_wide"
+_slots: dict = {}  # (device index, winsize) -> the generic-radius kernel's resident blocks
 
 
 def _entry(winsize: int) -> str:
     """The K2 entry that runs a window: the strip kernel up to
-    ``STRIP_WINSIZE``, the generic-radius kernels above it."""
-    return _STRIP if winsize <= STRIP_WINSIZE else _GENERIC
+    ``STRIP_WINSIZE``, the generic-radius kernel up to ``GENERIC_WINSIZE``,
+    the pair of kernels above it."""
+    if winsize <= STRIP_WINSIZE:
+        return _STRIP
+    return _GENERIC if winsize <= GENERIC_WINSIZE else _WIDE
+
+
+@functools.lru_cache(maxsize=256)
+def _ring_plan(p: int, h: int, w: int, winsize: int, slots: int, th: int = RING_ROWS,
+               span: int = RING_SPAN) -> tuple[int, int, int]:
+    """(tw, seg, rows) of the generic-radius kernel for P pairs of H x W at
+    ``winsize``, with ``slots`` blocks resident on the card: a block takes a
+    strip of ``tw`` output columns (a multiple of 4, at most ``span`` - 2 R4,
+    as wide as the fewest strips need) and a run of ``seg`` rows (whole
+    steps of ``th``); each plane's ring holds ``rows`` input rows.  A
+    block's time goes with the rows it loads (seg + 2R), and the launch
+    takes whole waves of ``slots`` blocks, so the run is the one with the
+    fewest rows across its waves (the strip kernel's rule).  ``th`` and
+    ``span`` are the kernel's (variants of it take others)."""
+    r = winsize // 2
+    r4 = (r + 3) & ~3
+    strips = -(-w // (span - 2 * r4))
+    tw = 4 * -(-w // (4 * strips))
+    steps = -(-h // th)
+    best = None
+    for run in range(1, steps + 1):
+        blocks = p * -(-w // tw) * -(-steps // run)
+        cost = -(-blocks // slots) * (th * run + 2 * r)
+        if best is None or cost < best[0]:
+            best = (cost, run)
+    return tw, th * best[1], (th + 2 * r + 3) & ~3
+
+
+def _ring_slots(device: torch.device, winsize: int) -> int:
+    """The generic-radius kernel's resident blocks on ``device`` at this
+    window (SMs x blocks an SM), asked of the library once."""
+    key = (device.index, winsize)
+    if key not in _slots:
+        n = _native.query("relax_box_blur_solve_generic_slots", device, winsize)
+        if n <= 0:
+            raise RuntimeError(f"relax_box_blur_solve_generic_slots: CUDA error {-n}")
+        _slots[key] = n
+    return _slots[key]
 
 
 def box_sum_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
@@ -59,8 +113,9 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
     """Box-averaged 2x2 solve -> new flow (P, 2, H, W).
 
     CUDA tensors launch K2 (``launches`` counts every call that does,
-    ``generic_launches`` those above ``STRIP_WINSIZE``); CPU tensors take
-    the plain version.
+    ``generic_launches`` those of the generic-radius kernel and
+    ``wide_launches`` those of the pair above ``GENERIC_WINSIZE``); CPU
+    tensors take the plain version.
     """
     if winsize < 1 or winsize % 2 != 1:
         raise ValueError(f"box window must be odd and positive, got {winsize}")
@@ -71,15 +126,21 @@ def box_blur_solve(m: torch.Tensor, winsize: int = 15) -> torch.Tensor:
     if c != 5:
         raise ValueError(f"M must be the 5 normal-equation planes, got shape {tuple(m.shape)}")
     flow = m.new_empty((p, 2, h, w))  # new_empty skips torch.empty's argument parsing on this hot path
-    if _entry(winsize) == _STRIP:
+    entry = _entry(winsize)
+    if entry == _STRIP:
         _native.launch(_STRIP, m.device, m.data_ptr(), flow.data_ptr(), p, h, w, winsize)
+    elif entry == _GENERIC:
+        tw, seg, _ = _ring_plan(p, h, w, winsize, _ring_slots(m.device, winsize))
+        _native.launch(_GENERIC, m.device, m.data_ptr(), flow.data_ptr(), p, h, w, winsize, tw, seg)
+        box_blur_solve.generic_launches += 1
     else:
         scratch = torch.empty_like(m)  # the vertical sums
-        _native.launch(_GENERIC, m.device, m.data_ptr(), scratch.data_ptr(), flow.data_ptr(), p, h, w, winsize)
-        box_blur_solve.generic_launches += 1
+        _native.launch(_WIDE, m.device, m.data_ptr(), scratch.data_ptr(), flow.data_ptr(), p, h, w, winsize)
+        box_blur_solve.wide_launches += 1
     box_blur_solve.launches += 1
     return flow
 
 
 box_blur_solve.launches = 0
 box_blur_solve.generic_launches = 0
+box_blur_solve.wide_launches = 0

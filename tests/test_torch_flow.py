@@ -5,16 +5,20 @@
   for in-band flow, the Pallas banded warp in interpret mode.
 - K2's plain version against ``box_blur_solve_pallas(..., interpret=True)``
   and ``_update_flow``, including non-tile shapes and windows past the strip
-  kernel's largest (19, 21, 31), which the generic-radius kernel takes on
-  the card; K2's routing between its two kernels.
+  kernel's largest (19, 21, 23, 31, 33), which the generic-radius kernel
+  takes on the card; K2's routing between its three routes; the
+  generic-radius kernel's plan and index arithmetic (its ring slots, the
+  spans clamped at the edges, the 4-row blocks of the vertical pass and the
+  16-byte chunks of the horizontal one), emulated in torch and held
+  bit-equal to ``box_sum_plain`` at ragged shapes.
 - The whole flow against ``farneback_flow(warp="exact")`` on a textured
   (dx=2, dy=1) pan, seed 5.  Measured on the CPU in f32: at 120x160 mean
   error 2.4e-7 px and interior (16 px in) max 2.9e-6 px; at 540x960 mean
   3.2e-7 px, interior max 6.0e-6 px.  Bounds: mean 1e-5 px, interior max
   5e-4 px, 100x inside the 0.05 px cv2 tolerance of tests/test_flow.py;
   the same bounds at winsize 21 (measured at 120x160: mean 2.3e-7 px,
-  interior max 2.1e-6 px).  K2 at windows 19, 21 and 31 on 67x131: within
-  7.8e-7 of both JAX forms (bound 1e-4).
+  interior max 2.1e-6 px).  K2 at windows 19, 21, 23, 31 and 33 on 67x131:
+  within 9.6e-7 of both JAX forms (bound 1e-4).
 """
 
 import jax
@@ -28,7 +32,9 @@ from relaxtpu.ops.flow import _poly_expansion, _update_flow, _update_matrices, _
 from relaxtpu.ops.flow import farneback_flow as jax_flow
 from relaxtpu.ops.warp import warp_planes_banded_pallas
 from relaxtpu_torch.ops import boxsolve
-from relaxtpu_torch.ops.boxsolve import STRIP_WINSIZE, box_blur_solve
+from relaxtpu_torch.ops.boxsolve import (
+    GENERIC_WINSIZE, RING_ROWS, RING_SPAN, STRIP_WINSIZE, _ring_plan, box_blur_solve, box_sum_plain,
+)
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, warp_planes_plain
 
@@ -109,7 +115,7 @@ def test_box_blur_solve_plain_matches_pallas_and_xla(rng, h, w):
     assert box_blur_solve.launches == 0
 
 
-@pytest.mark.parametrize("winsize", [19, 21, 31])
+@pytest.mark.parametrize("winsize", [19, 21, 23, 31, 33])
 def test_box_blur_solve_plain_matches_pallas_and_xla_wide_windows(rng, winsize):
     """Windows past the strip kernel's largest; at 31 the window spans
     more than a fifth of the image's 67 rows."""
@@ -124,21 +130,206 @@ def test_box_blur_solve_plain_matches_pallas_and_xla_wide_windows(rng, winsize):
 
 def test_box_blur_solve_refuses_a_window_past_the_kernels_largest():
     """The strip kernel is never handed a window past its largest
-    (``STRIP_WINSIZE``): those go to the generic-radius kernel, which takes
-    any odd window, as the Pallas kernel does.  An even window is refused
+    (``STRIP_WINSIZE``), nor the generic-radius kernel one past its
+    (``GENERIC_WINSIZE``): those go to the pair of kernels, which takes any
+    odd window, as the Pallas kernel does.  An even window is refused
     before any launch (a meta tensor stands in for a CUDA one); the plain
     version takes any odd window."""
-    assert STRIP_WINSIZE == 17
+    assert (STRIP_WINSIZE, GENERIC_WINSIZE) == (17, 65)
     for winsize in (1, 5, 15, 17):
         assert boxsolve._entry(winsize) == "relax_box_blur_solve"
-    for winsize in (19, 21, 31, 63, 101):
+    for winsize in (19, 21, 23, 31, 33, 63, 65):
         assert boxsolve._entry(winsize) == "relax_box_blur_solve_generic"
+    for winsize in (67, 101):
+        assert boxsolve._entry(winsize) == "relax_box_blur_solve_wide"
     for winsize in (16, 0, -3):
         with pytest.raises(ValueError, match="odd and positive"):
             box_blur_solve(torch.empty((1, 5, 8, 8), device="meta"), winsize)
     m = torch.rand((1, 5, 8, 8), generator=torch.Generator().manual_seed(0))
-    assert box_blur_solve(m, STRIP_WINSIZE + 2).shape == (1, 2, 8, 8)
-    assert box_blur_solve.launches == box_blur_solve.generic_launches == 0
+    for winsize in (STRIP_WINSIZE + 2, GENERIC_WINSIZE + 2):
+        assert box_blur_solve(m, winsize).shape == (1, 2, 8, 8)
+    assert box_blur_solve.launches == box_blur_solve.generic_launches == box_blur_solve.wide_launches == 0
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one thread for this file's emulation tests (set back after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# The generic-radius kernel's constants (csrc/boxsolve.cu): threads a block,
+# rows a thread sums in the vertical pass, the vertical-sum row stride, the
+# largest dynamic shared memory a block takes on the card.
+RING_THREADS, RING_VR, RING_VS, RING_SMEM_MAX = 256, 8, RING_SPAN + 4, 232448
+
+
+def emulate_ring(m: torch.Tensor, winsize: int, tw: int, seg: int, rows: int) -> torch.Tensor:
+    """The box sums of ``box_ring_solve_kernel`` on the plan (tw, seg,
+    rows), its index arithmetic carried out in torch as the kernel does it
+    (the five planes at once, in the kernel's order within a plane): ring
+    rows staged into their slots (slot0 + lane, then + LANES, wrapping),
+    the spans clamped at the image's edges, the vertical pass's register
+    window filled 4 ring rows a block (no block across the wrap), the
+    vertical sums shifted by R4 - R, the horizontal pass's 16-byte chunks
+    (never read past the buffer); NaN wherever the kernel has not written."""
+    p, c, h, w = m.shape
+    th, rs, vr, vs_w = RING_ROWS, RING_SPAN, RING_VR, RING_VS
+    r = winsize // 2
+    r4 = (r + 3) & ~3
+    off, span = r4 - r, tw + 2 * r4
+    assert span <= rs and rows % 4 == 0 and rows >= th + 2 * r
+    c4 = rs // 4
+    lanes = RING_THREADS // c4
+    out = torch.full_like(m, float("nan"))
+
+    def ring_rows(ring, y0, gx0, n, slot0):
+        cols = (gx0 + torch.arange(span)).clamp(0, w - 1)
+        for lane in range(lanes):
+            slot = slot0 + lane
+            slot -= rows if slot >= rows else 0
+            for i in range(lane, n, lanes):
+                ring[..., slot, :span] = m[..., min(max(y0 + i, 0), h - 1), :][..., cols]
+                slot += lanes
+                slot -= rows if slot >= rows else 0
+
+    def next4(slot):
+        return 0 if slot + 4 == rows else slot + 4
+
+    def vsums(ring, slot):
+        win = [None] * vr
+
+        def vtaps(s, slot, nj, at):
+            assert slot % 4 == 0 and slot + nj <= rows  # a block never straddles the wrap
+            new = [ring[..., slot + j, :] for j in range(nj)]
+            for j in range(nj):
+                win[at + j] = new[j]
+                for y in range(vr):
+                    s[y] = s[y] + win[(y + at + j + 1) % vr]
+
+        for b in range(vr // 4):
+            assert slot % 4 == 0 and slot + 4 <= rows
+            for j in range(4):
+                win[4 * b + j] = ring[..., slot + j, :]
+            slot = next4(slot)
+        s = list(win)
+        t = 2 * r
+        while t >= vr:
+            for b in range(vr // 4):
+                vtaps(s, slot, 4, 4 * b)
+                slot = next4(slot)
+            t -= vr
+        for b in range(vr // 4):
+            if 4 * b + 4 <= t:
+                vtaps(s, slot, 4, 4 * b)
+                slot = next4(slot)
+            elif 4 * b + 2 == t:
+                vtaps(s, slot, 2, 4 * b)
+        return s
+
+    def hsums(vs, base):
+        flat = vs.reshape(p, c, -1)
+
+        def ld(at):
+            assert int(at.max()) + 4 <= th * vs_w  # inside the buffer
+            return [flat[..., at + i] for i in range(4)]
+
+        def htaps(s, a, b, nj):
+            for j in range(1, nj + 1):
+                for i in range(4):
+                    s[i] = s[i] + (a[i + j] if i + j < 4 else b[i + j - 4])
+
+        a, b = ld(base), ld(base + 4)
+        s = list(a)
+        n, at = r >> 1, base + 8
+        while n >= 2:
+            htaps(s, a, b, 4)
+            a = ld(at)
+            htaps(s, b, a, 4)
+            b = ld(at + 4)
+            n, at = n - 2, at + 8
+        if n:
+            htaps(s, a, b, 4)
+            a = ld(at)
+            if r & 1:
+                htaps(s, b, a, 2)
+        elif r & 1:
+            htaps(s, a, b, 2)
+        return s
+
+    u = torch.arange(RING_THREADS * -(-th * rs // 4 // RING_THREADS))
+    hrow, hx = u // (tw // 4), 4 * (u % (tw // 4))
+    hrow, hx = hrow[hrow < th], hx[hrow < th]
+    for x0 in range(0, w, tw):
+        for ys in range(0, h, seg):
+            ye = min(ys + seg, h)
+            steps = -(-(ye - ys) // th)
+            ring = torch.full((p, c, rows, rs), float("nan"))
+            ring_rows(ring, ys - r, x0 - r4, th + 2 * r, 0)
+            vslot = [vy0 for vy0 in range(0, th, vr)]  # the slot of ring row th k + vy0
+            for k in range(steps):
+                fill = (th * (k + 1) + 2 * r) % rows
+                vs = torch.full((p, c, th, vs_w), float("nan"))
+                for g, vy0 in enumerate(range(0, th, vr)):
+                    for y, col in enumerate(vsums(ring, vslot[g])):
+                        vs[..., vy0 + y, : span - off] = col[..., off:span]
+                if k + 1 < steps:
+                    ring_rows(ring, ys - r + th * (k + 1) + 2 * r, x0 - r4, th, fill)
+                sums = hsums(vs, hrow * vs_w + hx)
+                vslot = [v + th - (rows if v + th >= rows else 0) for v in vslot]
+                yy = ys + th * k + hrow
+                for i in range(4):
+                    xx = x0 + hx + i
+                    keep = (yy < ye) & (xx < w)
+                    out[..., yy[keep], xx[keep]] = sums[i][..., keep]
+    return out
+
+
+RING_WINDOWS = [19, 21, 23, 25, 27, 33, 35, 63, 65]
+
+
+@pytest.mark.parametrize("winsize", RING_WINDOWS)
+def test_generic_radius_plan_and_index_arithmetic_are_bit_equal_to_box_sum_plain(one_thread, winsize):
+    """The kernel's plan and its index arithmetic, emulated (the CPU cannot
+    run the kernel), at ragged shapes: widths 1, 3 and 4, one strip less a
+    column, one strip, one strip and a column (the plan's widest strip is
+    128 - 2 R4), 131; heights 1 and below the window; runs for 1, 7 and 264
+    resident blocks.  Every output is ``box_sum_plain``'s to the bit, and
+    the plan fits a block's shared memory at the radius."""
+    r = winsize // 2
+    r4 = (r + 3) & ~3
+    strip = RING_SPAN - 2 * r4
+    gen = torch.Generator().manual_seed(winsize)
+    shapes = [(1, 1, 1), (2, 1, 3), (1, 5, 4), (1, winsize - 2, strip - 1), (1, 3, strip),
+              (1, 2 * RING_ROWS + 3, strip + 1), (2, 37, 131)]
+    for p, h, w in shapes:
+        m = torch.randn((p, 5, h, w), generator=gen) * 50
+        want = box_sum_plain(m, winsize)
+        for slots in (1, 7, 264):
+            tw, seg, rows = _ring_plan(p, h, w, winsize, slots)
+            assert tw % 4 == 0 and 4 <= tw <= strip and -(-w // tw) == -(-w // strip)
+            assert seg % RING_ROWS == 0 and seg >= RING_ROWS
+            assert 4 * (5 * rows * RING_SPAN + 2 * RING_ROWS * RING_VS) <= RING_SMEM_MAX
+            got = emulate_ring(m, winsize, tw, seg, rows)
+            assert torch.equal(got, want), (p, h, w, slots, (got - want).abs().max())
+
+
+def test_generic_radius_plan_at_the_main_path_levels():
+    """The plan at the 540p levels: strips as wide as the fewest need (960
+    columns in 10 strips of 96 at winsize 21, not 104 wasting 80), the
+    largest radius's rings within a block's shared memory, and runs that
+    fill whole waves."""
+    assert _ring_plan(16, 540, 960, 21, 264)[0] == 96
+    assert [_ring_plan(16, h, w, 21, 264)[0] for h, w in ((68, 120), (135, 240), (270, 480))] == [60, 80, 96]
+    rows = _ring_plan(1, 8, 8, GENERIC_WINSIZE, 132)[2]
+    assert rows == RING_ROWS + 2 * (GENERIC_WINSIZE // 2)
+    assert 4 * (5 * rows * RING_SPAN + 2 * RING_ROWS * RING_VS) <= RING_SMEM_MAX
+    for p, h, w in ((16, 540, 960), (16, 68, 120), (1, 1, 1)):
+        tw, seg, _ = _ring_plan(p, h, w, 21, 264)
+        steps, run = -(-h // RING_ROWS), seg // RING_ROWS
+        assert 1 <= run <= steps
 
 
 def textured(rng, h, w, sigma=3.0):
