@@ -10,16 +10,22 @@ Phases (any failed check raises, so the exit code is not 0):
    of tensor-core instructions in each K3 function's SASS (cuobjdump),
    failing if a bf16 K3 function (short or long) has none, if the long K3
    (the bf16 ring kernel and the f32 one-pass kernel at D 32 and 64 among
-   them) or the generic-radius K2 functions are missing, or if the ring
-   kernel or the one-pass kernel spills;
+   them), the generic-radius K2 or the wide-window K2 functions are
+   missing, or if the ring kernel, the one-pass kernel, the generic-radius
+   K2 or either wide-window K2 pass spills;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (matrix update) and K2 (box blur + solve) at the four 540p and the four
    1080p pyramid levels with 16 pairs, at the 4K finest level (2160x3840)
    with 4 pairs, with per-pixel random flows up to +-40 px, and at 16x20
    and 67x131; K2 also at winsize 5 and 17 (and at 1080x1920 with 2 pairs),
-   at winsize 19, 21, 31 and 63 (the generic-radius kernel, each call
-   counted) on the 540p levels, 16x20 and 67x131, and winsize 17 then 19
-   launching the strip kernel then the generic one; K3 (attention) at
+   at the windows past 17 (``WIDE_WINDOWS``: the generic-radius kernel's
+   and the wide route's, each call counted, the first window whose
+   vertical ring does not fit among them) on the 540p levels, 16x20 and
+   67x131 and on one pair at the edges of the plan of the route that takes
+   the window, aligned and offset by one float, each bit-identical to the
+   plain version; the wide route with both passes' taps in chunks, by a
+   plan that forces them; and winsize 17 then 19 launching the strip kernel
+   then the generic one; K3 (attention) at
    (48, 197, 12, 64) and at N in {1, 17, 64, 197, 208, 256} x D in {32, 64}
    (the short entries) and N in {257, 300, 577, 1025} x D in {32, 64, 80,
    128, 256} and N in {383, 384, 385, 640, 641} x D in {32, 64} (the long
@@ -50,8 +56,10 @@ Phases (any failed check raises, so the exit code is not 0):
    checked and timed on exactly those inputs, per video: CUDA events
    around repeated calls, and the profiler's device durations alone; none
    of the 12 K2 and K3 launches is on the generic K2 or the long K3; the
-   generic K2 at winsize 21 timed on the recorded K2 inputs beside the
-   strip kernel at 15;
+   generic K2 at winsize 21 and the wide route at 67 timed on the recorded
+   K2 inputs beside the strip kernel at 15, by level and (the wide route)
+   by kernel function, against a bound that counts K2's adds at the add
+   rate (``F32_ADDS_PER_S``);
 6. the serving paths, full width (ResNet-50, ViT-B/16 depth 12, seeded),
    in bf16 and f32, each run with the launch counts set to 0 before it and
    read after it:
@@ -269,6 +277,9 @@ WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and compute rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# K2's work is adds: the card issues one a lane a cycle, half the data sheet's f32 rate, which counts an
+# FMA as two operations (132 SMs x 128 lanes x 1.98 GHz)
+F32_ADDS_PER_S = PEAK_FLOPS[torch.float32] / 2
 
 # main-path shapes: 540p, 16 frames + 16 pairs, ViT-B/16 over F + 2P images
 H, W, PAIRS, FRAMES = 540, 960, 16, 16
@@ -282,12 +293,14 @@ K1_FLOPS_PER_PX = 80    # corner weights, 5-plane gather, averaging, flow terms,
 LONG_ATTN_SHAPE = (FRAMES + 2 * PAIRS, 577, 12, 64)  # ViT-B/16 at 384x384
 RING_EDGES = (383, 384, 385, 640, 641)  # about 3 query blocks of 128 (6 of 64) and 10 key tiles of 64
 TAIL_EDGES = (264, 265, 272, 273, 288, 289)  # the f32 one-pass kernel's last tile: 8 | 16 | 32 | 64 keys
-# K2 past the strip kernel's largest window: the generic-radius kernel at its plan's changes (R4 = R
-# rounded up to 4 steps at 19, 27, 35; R odd pads the ring by 2 rows) and its largest window; the pair
-# of kernels above it
-WIDE_WINDOWS = (19, 21, 23, 25, 27, 31, 33, 35, 63, GENERIC_WINSIZE, GENERIC_WINSIZE + 2)
+# K2 past the strip kernel's largest window: the generic-radius kernel's route (19, 21); the wide route
+# above it, at every R mod 4 (the scratch's column offset) among windows the generic kernel also takes
+# (its plan's changes at 27 and 35, its largest at 65), taller than the 540p levels' smallest (101,
+# 131), and at its first window whose vertical ring does not fit a block, so the taps run in chunks
+FIRST_CHUNKED = boxsolve_mod._wide_taps(10**6) + 2
+WIDE_WINDOWS = (19, 21, 23, 25, 27, 31, 33, 35, 63, 65, 67, 69, 101, 131, FIRST_CHUNKED)
 WIDE_WINSIZE = 21                # the slice's flow window
-PAIR_WINSIZE = GENERIC_WINSIZE + 2  # the pair of kernels' flow window
+PAIR_WINSIZE = 67                # the wide route's flow window
 
 
 def k2_flops_per_px(winsize: int = 15) -> int:
@@ -331,7 +344,8 @@ def kernel_records(fns: list, passes: int) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fns: list, per_call: int | None = 1, passes: int = 10, tries: int = 3) -> float | None:
+def device_ms(fns: list, per_call: int | None = 1, passes: int = 10, tries: int = 3,
+              split: dict | None = None) -> float | None:
     """Summed device time of the work that the calls in ``fns`` launch, in
     ms per pass over them, from torch.profiler's CUDA activity (no host or
     launch time).
@@ -346,7 +360,8 @@ def device_ms(fns: list, per_call: int | None = 1, passes: int = 10, tries: int 
     that, is profiled again, ``tries`` times in all, then gives None, and
     the caller quotes events.  For a library call (``per_call`` None) a
     function's launches a call are its records over the passes, rounded.
-    Calls with records missing are named."""
+    Calls with records missing are named.  ``split``, where given, gathers
+    the ms a pass by kernel function."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
@@ -368,6 +383,10 @@ def device_ms(fns: list, per_call: int | None = 1, passes: int = 10, tries: int 
         if len(recs) < passes * sum(launches.values()):
             short.append(f"{i}: {len(recs)} of {passes * sum(launches.values())}")
         total += sum(sum(v) / len(v) * launches[name] for name, v in by_name.items())
+        for name, v in by_name.items():
+            if split is not None:
+                fn_name = (re.findall(r"\w+_kernel", name) or [name[:40]])[0]
+                split[fn_name] = split.get(fn_name, 0.0) + sum(v) / len(v) * launches[name] / 1e3
     if short:
         print(f"  device_ms: the profiler dropped records of {len(short)} of {len(fns)} calls (call: records kept) "
               f"{' '.join(short)}: their functions' means of the records kept stand")
@@ -390,9 +409,12 @@ def check(name: str, rel: float, tol: float, verbose: bool = True) -> None:
         raise AssertionError(f"{name} disagrees with its plain version: {rel} > {tol}")
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, dtype, peak: float | None = None) -> tuple[float, str]:
+    """The least ms the card could take: the bytes over the memory rate or
+    the operations over ``peak`` (default: the data sheet's rate for
+    ``dtype``), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -427,8 +449,8 @@ def report_build(so: str) -> dict:
     """ptxas's registers and spills for every kernel function, and the count
     of tensor-core instructions (HMMA/HGMMA) in each K3 function's SASS
     (cuobjdump from the toolkit that built them); raises if a bf16 K3
-    function, short or long, has none, or if the long K3 kernels or the
-    generic-radius K2 kernel spill."""
+    function, short or long, has none, or if the long K3 kernels, the
+    generic-radius K2 kernel or the wide-window K2's two passes spill."""
     funcs = {}
     for src in ("warp.cu", "boxsolve.cu", "attention.cu"):
         name = None
@@ -450,7 +472,7 @@ def report_build(so: str) -> dict:
         elif name and "mha" in name and re.search(r"\bHG?MMA\b", line):
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
-        kernel = re.search(r"(update_matrices|box_blur_solve|box_ring_solve|box_rows|box_cols_solve|mha_bf16(_long|_ring)?"
+        kernel = re.search(r"(update_matrices|box_blur_solve|box_ring_solve|box_vsum|box_hsum_solve|mha_bf16(_long|_ring)?"
                            r"|mha_f32(_long|_online)?)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
@@ -458,10 +480,10 @@ def report_build(so: str) -> dict:
         print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
     if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "mha_f32_online",
-                                                    "box_ring_solve", "box_rows")):
+                                                    "box_ring_solve", "box_vsum", "box_hsum_solve")):
         raise AssertionError("the long K3 or the generic-radius or wide-window K2 functions are missing "
                              "from the build")
-    for kernel in ("mha_bf16_ring", "mha_f32_online", "box_ring_solve"):
+    for kernel in ("mha_bf16_ring", "mha_f32_online", "box_ring_solve", "box_vsum", "box_hsum_solve"):
         fs = {n: f for n, f in funcs.items() if kernel in n}
         if any("0 bytes spill stores" not in f.get("spill", "") for f in fs.values()):
             raise AssertionError(f"the {kernel} kernel spills: {fs}")
@@ -492,6 +514,49 @@ def check_k2_window(m: torch.Tensor, ws: int, label: str) -> float:
     return err
 
 
+def k2_edge_widths(ws: int) -> tuple:
+    """The widths at the edges of the plan of the K2 route that takes
+    window ``ws``: the generic-radius kernel's widest strip (128 - 2 R4)
+    less one, itself and one more; for the wide route, the same about its
+    vertical strip (128 columns) and its horizontal pass's widest strip
+    (whole rows up to 2,048 columns)."""
+    if boxsolve_mod._entry(ws) == boxsolve_mod._GENERIC:
+        strips = (boxsolve_mod.RING_SPAN - 2 * ((ws // 2 + 3) & ~3),)
+    else:
+        strips = (boxsolve_mod.WIDE_SPAN, 4 * boxsolve_mod.WIDE_RUNS)
+    return tuple(s + d for s in strips for d in (-1, 0, 1))
+
+
+def check_wide_chunks(gen: torch.Generator) -> float:
+    """The wide route with both passes' taps in chunks, by a plan that
+    forces them (the vertical pass's taps in launches of a third of the
+    window, each adding to the scratch sums of the ones before; the
+    horizontal pass's in staged chunks of about a quarter; horizontal
+    strips of at most 128 columns), at winsizes 67 and 131 on the 135x240
+    level with 16 pairs and on ragged shapes, aligned and offset by one
+    float: bit-identical to the plain version; -> |kernel - plain|."""
+    worst = 0.0
+    for ws in (PAIR_WINSIZE, 131):
+        for p, hk, wk in ((PAIRS, 135, 240), (1, ws - 2, 131), (2, 37, 129)):
+            m = torch.randn((p, 5, hk, wk), generator=gen, device="cuda") * 50
+            want = box_blur_solve_plain(m, ws)
+            for at in (0, 1):
+                mm = nan_padded(m, at=at)
+                plan = boxsolve_mod._wide_plan(p, hk, wk, ws, boxsolve_mod._wide_slots(mm.device, ws), runs=32,
+                                               vtaps=ws // 3, htaps=4 * (ws // 12))
+                flow, scratch = mm.new_empty((p, 2, hk, wk)), mm.new_empty((p, 5, hk, plan[0]))
+                _native.launch(boxsolve_mod._WIDE, mm.device, mm.data_ptr(), scratch.data_ptr(), flow.data_ptr(), p,
+                               hk, wk, ws, *plan)
+                err, _ = rel_err(flow, want)
+                if err != 0:
+                    raise AssertionError(f"K2 wide route, taps in chunks (plan {plan}), winsize {ws} {p}x{hk}x{wk} "
+                                         f"offset {at}: |kernel - plain| {err}, not bit-identical")
+                worst = max(worst, err)
+    print(f"  K2 wide route with both passes' taps in chunks, winsizes {PAIR_WINSIZE} and 131, 12 checks: largest "
+          f"|kernel - plain| {worst:g}")
+    return worst
+
+
 def check_flow_kernels(gen: torch.Generator) -> dict:
     """K1 and K2 against their plain versions at the four 540p and 1080p
     levels and the 4K finest level, with
@@ -499,11 +564,11 @@ def check_flow_kernels(gen: torch.Generator) -> dict:
     outside) and NaN-padded inputs; K2 also at ragged shapes, at other odd
     windows, and at the windows past the strip kernel's largest
     (``WIDE_WINDOWS``) on the 540p levels and the ragged shapes, and, at
-    each, on P = 1 at the generic-radius kernel's strip edges (W in 1, 3, 4,
-    a strip less one, a strip and one more, 131; H 1 and below the window),
-    aligned and offset by one float; the largest |kernel - plain| of every
-    check printed (0: bit-identical), each launching the route ``_entry``
-    names."""
+    each, on P = 1 at the edges of the plan of the route that takes it (W in
+    1, 3, 4, ``k2_edge_widths``, 131; H 1 and below the window), aligned
+    and offset by one float; the largest |kernel - plain| of every check
+    printed (0: bit-identical), each launching the route ``_entry`` names;
+    then the wide route with its taps in chunks (``check_wide_chunks``)."""
     worst = {"K1": 0.0, "K2": 0.0, "K2_generic": 0.0, "K2_wide": 0.0}
     shapes = [(PAIRS, hk, wk, 15) for _, hk, wk in pyramid_levels(H, W)]
     shapes += [(PAIRS, hk, wk, 15) for _, hk, wk in pyramid_levels(H_HI, W_HI)]
@@ -534,9 +599,8 @@ def check_flow_kernels(gen: torch.Generator) -> dict:
     if wide:
         raise AssertionError(f"no K2 check at wide windows for {wide}")
     for wws in WIDE_WINDOWS:
-        strip = boxsolve_mod.RING_SPAN - 2 * ((wws // 2 + 3) & ~3)  # the plan's widest strip
         for hk in (1, wws - 2):
-            for wk in (1, 3, 4, strip - 1, strip, strip + 1, 131):
+            for wk in (1, 3, 4, *k2_edge_widths(wws), 131):
                 m = torch.randn((1, 5, hk, wk), generator=gen, device="cuda") * 50
                 for tag, mm in (("", nan_padded(m)), (" offset", nan_padded(m, at=1))):
                     errs[wws][f"1x{hk}x{wk}{tag}"] = check_k2_window(mm, wws, f"1x{hk}x{wk}{tag}")
@@ -545,6 +609,7 @@ def check_flow_kernels(gen: torch.Generator) -> dict:
         print(f"  K2 winsize {wws} ({route} route): largest |kernel - plain| {max(errs[wws].values()):g} over "
               f"{len(errs[wws])} checks; by shape (P x H x W, o: one float into the allocation): "
               + " ".join(f"{k.replace(' offset', 'o')}:{v:g}" for k, v in errs[wws].items()))
+    worst["K2_wide"] = max(worst["K2_wide"], check_wide_chunks(gen))
     n0 = k2_route_counts()
     m = torch.rand((1, 5, 16, 16), device="cuda")
     for ws in (STRIP_WINSIZE, STRIP_WINSIZE + 2, GENERIC_WINSIZE, GENERIC_WINSIZE + 2):
@@ -670,7 +735,7 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
                 r["flops"] += px * (K1_FLOPS_PER_PX if key == "K1" else
                                     k2_flops_per_px(kwargs.get("winsize", args[1] if len(args) > 1 else 15)))
         r["bound_ms"], r["bound_by"] = bound(
-            r["bytes"], r["flops"], args[0].dtype)
+            r["bytes"], r["flops"], args[0].dtype, F32_ADDS_PER_S if key == "K2" else None)
         r["device_ms"] = device_ms(kernel_fns)
         r["library_device_ms"] = device_ms(library_fns, per_call=None) if library_fns else None
         print(f"  {key} {tag} {label}: {r['calls']} calls (largest error / max |plain| {r['rel']:.3e}), "
@@ -748,7 +813,7 @@ def counts() -> dict:
 
 def slice_counts() -> dict:
     """The launches of the entries the later slices added, a part of
-    ``counts()``'s: the generic-radius K2 (winsize 19 to 65), the pair of
+    ``counts()``'s: the generic-radius K2 (winsize 19 and 21), the pair of
     K2 kernels above it, and the long K3 (N > 256 or D not 32 or 64)."""
     return {"K2_generic": box_blur_solve.generic_launches, "K2_wide": box_blur_solve.wide_launches,
             "K3_long": mha.long_launches}
@@ -764,8 +829,9 @@ def time_k2_wide(recorded: list, winsize: int) -> dict:
     recorded M planes beside the strip kernel at the recorded window, summed
     over the calls and by pyramid level (its three calls): ms by events,
     device ms by the profiler (``device_ms``: each call profiled on its own,
-    its kernel records counted), the plain version's ms, the kernel held
-    against its plain version, and its bound.  At the small levels a call's
+    its kernel records counted; and by kernel function), the plain
+    version's ms, the kernel held against its plain version, and its bound
+    (K2's operations are adds, at ``F32_ADDS_PER_S``).  At the small levels a call's
     events time the host's wrapper, not the device."""
     r = {"calls": len(recorded), "err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0, "strip_ms": 0.0,
          "bytes": 0.0, "flops": 0.0, "library_ms": None, "levels": {}}
@@ -791,23 +857,28 @@ def time_k2_wide(recorded: list, winsize: int) -> dict:
         lv["strip_ms"] += strip_ms
         lv["fns"].append(fn)
         lv["strip_fns"].append(strip_fn)
-    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], torch.float32)
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], torch.float32, F32_ADDS_PER_S)
     for shape, lv in by_level.items():
-        lv["device_ms"] = device_ms(lv.pop("fns"), per_call=per_call)
+        lv["by_function"] = {}
+        lv["device_ms"] = device_ms(lv.pop("fns"), per_call=per_call, split=lv["by_function"])
         lv["strip_device_ms"] = device_ms(lv.pop("strip_fns"))
         r["levels"][shape] = lv
         print(f"    level {shape}: {lv['calls']} calls, {lv['ms']:.4f} ms by events, device only "
-              f"{lv['device_ms']}; the strip kernel at the recorded window {lv['strip_ms']:.4f}, device only "
-              f"{lv['strip_device_ms']}")
+              f"{lv['device_ms']} (by function { {k: round(v, 4) for k, v in lv['by_function'].items()} }); the "
+              f"strip kernel at the recorded window {lv['strip_ms']:.4f}, device only {lv['strip_device_ms']}")
     for key in ("device_ms", "strip_device_ms"):  # the levels' sums
         r[key] = None if any(lv[key] is None for lv in r["levels"].values()) else sum(
             lv[key] for lv in r["levels"].values())
+    r["by_function"] = {}
+    for lv in r["levels"].values():
+        for k, v in lv["by_function"].items():
+            r["by_function"][k] = r["by_function"].get(k, 0.0) + v
     share = f"{r['bound_ms'] / r['device_ms']:.1%}" if r["device_ms"] else "not measured"
     print(f"  K2 winsize {winsize} ({'wide' if per_call == 2 else 'generic'} route) on the {r['calls']} main-path "
           f"inputs: {r['ms']:.4f} ms by events (device only {r['device_ms']}; plain {r['plain_ms']:.4f}; bound "
           f"{r['bound_ms']:.4f} by {r['bound_by']}, {share} of device ms; largest error / max |plain| "
-          f"{r['rel']:.3e}); the strip kernel at the recorded window {r['strip_ms']:.4f} ms (device only "
-          f"{r['strip_device_ms']})")
+          f"{r['rel']:.3e}; by function { {k: round(v, 4) for k, v in r['by_function'].items()} }); the strip "
+          f"kernel at the recorded window {r['strip_ms']:.4f} ms (device only {r['strip_device_ms']})")
     return r
 
 
@@ -2768,7 +2839,7 @@ def main() -> int:
     # the K2 routes past the strip kernel's window, each with launches from its own flow path
     for key, what, path in (("k2_generic", f"generic radius (box_ring_solve_kernel, winsize {WIDE_WINSIZE})",
                              wide_flow),
-                            ("k2_wide", f"wide window (box_rows_kernel + box_cols_solve_kernel, winsize "
+                            ("k2_wide", f"wide window (box_vsum_kernel + box_hsum_solve_kernel, winsize "
                                         f"{PAIR_WINSIZE})", pair_flow)):
         r, route = main_res["bf16"][key], key.replace("k2", "K2")
         kernels.append({

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "relax_update_matrices": (_P, _P, _P, _P, _I, _I, _I, _P),
     "relax_box_blur_solve": (_P, _P, _I, _I, _I, _I, _P),
     "relax_box_blur_solve_generic": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "relax_box_blur_solve_wide": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "relax_box_blur_solve_wide": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "relax_mha_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_f32_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
@@ -53,6 +53,7 @@ _SIGNATURES = {
 # queries: (argtypes) -> int
 _QUERIES = {
     "relax_box_blur_solve_generic_slots": (_I,),
+    "relax_box_blur_solve_wide_slots": (_I,),
 }
 
 _lock = threading.Lock()

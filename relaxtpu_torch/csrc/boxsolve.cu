@@ -34,11 +34,11 @@
 //   with products rounded as the plain version rounds them, and only the
 //   two flow planes are written, a warp storing 512 contiguous bytes.
 //
-// Windows 19 to 65 (box_blur_solve_pallas takes any odd winsize; the strip
-// kernel's halo span holds a radius of at most 8) take the generic-radius
-// kernel, box_ring_solve_kernel: the strip kernel's structure with the radius
-// R a run-time value, in one launch that reads M once and writes only the
-// flow (no scratch).
+// Windows 19 and 21 (box_blur_solve_pallas takes any odd winsize; the
+// strip kernel's halo span holds a radius of at most 8) take the
+// generic-radius kernel, box_ring_solve_kernel: the strip kernel's
+// structure with the radius R a run-time value, in one launch that reads M
+// once and writes only the flow (no scratch).  It takes windows up to 65.
 // - A block of 256 threads takes (pair, strip of tw output columns, run of
 //   seg rows) and walks down it 16 output rows a step.  Each plane's input
 //   rows sit in a ring of ``rows`` = 16 + 2R rows (rounded up to 4) of a
@@ -65,11 +65,47 @@
 // - The five box sums of a pixel stay in registers; the solve is the strip
 //   kernel's, so the result is the plain version's to the bit.
 // At R = 32 the rings take 200 KB (one block an SM); winsize 65 is the
-// largest the kernel takes (GRMAX).  Windows above 65 take a pair of
-// kernels: a vertical clamped-row box sum of the five planes into a scratch
-// buffer the wrapper allocates, then a horizontal clamped-column sum fused
-// with the scale and the solve, taps from global memory through L1 (68
-// bytes a pixel against the function's 28).
+// largest the kernel takes (GRMAX).
+//
+// Wider windows take a pair of kernels whose shared memory does not hold
+// five planes at once: the function's 28 bytes a pixel plus a scratch
+// buffer of vertical sums written once and read once: 68 bytes a pixel,
+// and the halos (a run of seg rows reads seg + taps - 1 of M's, 1.24x at
+// winsize 67 on a 540x960 plane; a band's staged span is its width plus
+// taps + 3 columns, 1.075x there).  One launch of each takes windows up to
+// 421.
+// - box_vsum_kernel, the vertical pass: a block of 256 threads takes one
+//   plane of a pair, a strip of 128 columns (all of them output columns:
+//   a vertical sum needs no horizontal halo) and a run of seg rows, and
+//   walks down it 16 output rows a step.  The plane's input rows sit in a
+//   ring of 32 + (taps - 1) rows (rounded up to 4) x 128 columns: a step's
+//   window and the next step's 16 rows, which arrive by 16-byte cp.async
+//   (4-byte copies, clamped, at the edges or for unaligned widths) while
+//   the step reads the ring, one barrier a step: 51,200 bytes at winsize 67
+//   (four blocks an SM), 118,784 at 201, 231,424 at 421.  A thread
+//   takes a column and 8 rows and forms their sums in tap order with the
+//   generic-radius kernel's sliding register window (one shared load a
+//   tap, no compare an output), then stores them to the scratch, a warp
+//   writing 128 contiguous bytes of a row (16-byte stores would need rows
+//   aligned as the horizontal pass needs them shifted).  Windows whose ring
+//   would not fit walk their taps in chunks, in order: a launch a chunk,
+//   each adding its taps to the sums the launches before it stored.
+// - box_hsum_solve_kernel, the horizontal pass, the scale and the solve: a
+//   block of 256 threads takes (pair, strip of tw columns, band of bh rows),
+//   tw whole rows up to 2,048 columns (each sum read once but for the
+//   halo), 512 4-pixel runs at most.  It stages the five planes' sums of
+//   the band over tw + taps + 3 columns by cp.async (clamped at the edges);
+//   the scratch holds column x at R mod 4 + x of rows of ws floats, so the
+//   staged span starts 16-byte aligned at any R.  A thread forms 4
+//   consecutive outputs from 16-byte chunks, taps in order, the five box
+//   sums of its (two) runs in registers; the solve is the strip kernel's.
+//   Windows whose staged span would not fit (about 9,500 taps) walk their
+//   taps in staged chunks, in order, into the same registers.
+// Both start their sums from -0, which adds exactly, so the pair's output
+// is the plain version's to the bit.  The pair takes windows above
+// ops/boxsolve.py's GENERIC_WINSIZE: it is faster than the generic-radius
+// kernel from winsize 23 on, where that kernel's rings hold it to one block
+// an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -560,75 +596,236 @@ int ring_opt_in(int dev) {
   });
 }
 
-// ---------------------------------------------- windows above 65: two passes
-constexpr int GX = 128;  // threads a block in both passes
-constexpr int GR = 16;   // output rows a thread in the vertical pass
-constexpr int GC = 4;    // output columns a thread in the horizontal pass
+// ------------------------------------------------ wide windows: two passes
+constexpr int VT = GT;     // threads a block in the vertical pass (ring_rows' thread count)
+constexpr int VTH = 16;    // output rows a step of the vertical pass
+constexpr int VRS = 128;   // columns a vertical block: its ring rows, all output columns
+constexpr int VR = VTH * VRS / VT;  // rows a thread sums
+constexpr int HT = 256;    // threads a block in the horizontal pass
+constexpr int HR = 2;      // 4-pixel runs a thread in the horizontal pass, at most
+constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory on the card
+static_assert(VR % 4 == 0 && VR * VT == VTH * VRS && VRS % 32 == 0, "a (column, VR rows) item a thread");
 
-// acc[i] = sum over d = 0 .. 2R of tap(i + d), in tap order, for the OUT
-// outputs of a run: each tap is loaded once and added to the outputs whose
-// window holds it.
-template <int OUT, typename Tap>
-__device__ __forceinline__ void run_sums(float (&acc)[OUT], int R, Tap tap) {
-#pragma unroll 2
-  for (int r = 0; r < OUT + 2 * R; ++r) {
-    const float val = tap(r);
+// Ring rows of the vertical pass for n taps a launch: a step's window (VTH +
+// n - 1 rows) and the next step's VTH, a multiple of 4.
+__host__ __device__ constexpr int vring_rows(int n) { return (2 * VTH + n - 1 + 3) & ~3; }
+// Staged floats a row of the horizontal pass for chunks of ct taps: the
+// strip, the taps and what hsums_from reads past them.
+__host__ __device__ constexpr int hstage_cols(int tw, int ct) { return tw + ((ct + 3 + 3) & ~3); }
+
+// s[y] += u(y) + u(y + 1) + ... + u(y + n - 1) for y < VR, in that order:
+// u(v) is ring row slot + v (mod rows) of column ``col``.  vsums' sliding
+// window of VR registers, from sums already begun and for any count of taps.
+template <int VR_, int RS>
+__device__ __forceinline__ void vsums_from(float (&s)[VR_], const float* col, int slot, int rows, int n) {
+  float w[VR_];
 #pragma unroll
-    for (int i = 0; i < OUT; ++i) {
-      const int d = r - i;
-      if (d == 0)
-        acc[i] = val;
-      else if (d > 0 && d <= 2 * R)
-        acc[i] += val;
+  for (int b = 0; b < VR_ / 4; ++b) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[4 * b + j] = col[(slot + j) * RS];
+    slot = next4(slot, rows);
+  }
+#pragma unroll
+  for (int y = 0; y < VR_; ++y) s[y] += w[y];
+  int t = n - 1;  // taps left
+  for (; t >= VR_; t -= VR_) {
+#pragma unroll
+    for (int b = 0; b < VR_ / 4; ++b) {
+      vtaps<VR_, RS, 4>(s, w, col + slot * RS, 4 * b);
+      slot = next4(slot, rows);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < VR_ / 4; ++b) {  // t is below VR
+    if (4 * b + 4 <= t) {
+      vtaps<VR_, RS, 4>(s, w, col + slot * RS, 4 * b);
+      slot = next4(slot, rows);
+    } else if (4 * b + 3 == t) {
+      vtaps<VR_, RS, 3>(s, w, col + slot * RS, 4 * b);
+    } else if (4 * b + 2 == t) {
+      vtaps<VR_, RS, 2>(s, w, col + slot * RS, 4 * b);
+    } else if (4 * b + 1 == t) {
+      vtaps<VR_, RS, 1>(s, w, col + slot * RS, 4 * b);
     }
   }
 }
 
-// vsum[pc, y, x] = sum over d = 0 .. 2R of m[pc, clamp(y - R + d), x]: block
-// (column strip, run of GR rows, plane of a pair), a thread a column
-__global__ void __launch_bounds__(GX)
-box_rows_kernel(const float* __restrict__ m, float* __restrict__ vsum, int H, int W, int R) {
-  const int x = blockIdx.x * GX + threadIdx.x;
-  if (x >= W) return;
-  const long long plane = (long long)blockIdx.z * H * W;
-  const float* const col = m + plane + x;
-  const int y0 = blockIdx.y * GR;
-  float acc[GR];
-  run_sums<GR>(acc, R, [&](int r) {
-    return __ldg(col + (long long)min(max(y0 - R + r, 0), H - 1) * W);
-  });
+// s[i] += v(i) + v(i + 1) + ... + v(i + n - 1) for i < 4, in that order, v
+// read from p (16-byte aligned) by 16-byte chunks: hsums for sums already
+// begun and any count of taps.  Reads at most v(n + 6).
+__device__ __forceinline__ void hsums_from(float (&s)[4], const float* p, int n) {
+  float a[4], b[4];
+  ld4(a, p);
+  ld4(b, p + 4);
 #pragma unroll
-  for (int i = 0; i < GR; ++i)
-    if (y0 + i < H) vsum[plane + (long long)(y0 + i) * W + x] = acc[i];
+  for (int i = 0; i < 4; ++i) s[i] += a[i];
+  int t = n - 1;  // taps left
+  p += 8;
+#pragma unroll 2
+  for (; t >= 8; t -= 8, p += 8) {  // two groups of 4 a trip, the chunks' roles swapped
+    htaps<4>(s, a, b);
+    ld4(a, p);
+    htaps<4>(s, b, a);
+    ld4(b, p + 4);
+  }
+  if (t >= 4) {
+    htaps<4>(s, a, b);
+    ld4(a, p);
+    if (t == 7) htaps<3>(s, b, a);
+    else if (t == 6) htaps<2>(s, b, a);
+    else if (t == 5) htaps<1>(s, b, a);
+  } else if (t == 3) {
+    htaps<3>(s, a, b);
+  } else if (t == 2) {
+    htaps<2>(s, a, b);
+  } else if (t == 1) {
+    htaps<1>(s, a, b);
+  }
 }
 
-// the horizontal sums of the five planes of GC pixels of row y, scaled,
-// and the solve: block (strip of GX * GC columns, row, pair)
-__global__ void __launch_bounds__(GX)
-box_cols_solve_kernel(const float* __restrict__ vsum, float* __restrict__ out, int H, int W,
-                      int R, float inv_area) {
-  const int x0 = (blockIdx.x * GX + threadIdx.x) * GC;
-  if (x0 >= W) return;
-  const int y = blockIdx.y, p = blockIdx.z;
-  const long long hw = (long long)H * W;
-  float b[5][GC];
+// Vertical pass, taps t0 .. t0 + n - 1 of every output:
+//   vs[pc, y, padl + x] (+)= m[pc, clamp(y - R + t0), x] + ... + m[pc, clamp(y - R + t0 + n - 1), x]
+// in that order, begun from the sums of the taps before t0 (t0 > 0) or
+// from -0 (which adds exactly).  grid: (strips of VRS columns, runs of seg
+// rows, P x 5 planes).  Stream row i of a run (image row ys - R + t0 + i,
+// clamped) sits in ring slot i mod rows; step k reads stream rows [VTH k,
+// VTH k + VTH + n - 1) and, while it does, the next step's VTH rows land in
+// the slots of rows below VTH k.
+__global__ void __launch_bounds__(VT, 4)
+box_vsum_kernel(const float* __restrict__ m, float* __restrict__ vs, int H, int W, int ws, int padl,
+                int R, int t0, int n, int seg, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows = vring_rows(n);
+  const int x0 = blockIdx.x * VRS, ys = blockIdx.y * seg, ye = min(ys + seg, H);
+  const int steps = (ye - ys + VTH - 1) / VTH, span = min(VRS, W - x0);
+  const float* const src = m + (long long)blockIdx.z * H * W;
+  float* const dst = vs + (long long)blockIdx.z * H * ws + padl + x0;
+  const int y0 = ys - R + t0;  // the image row of stream row 0
+  ring_rows<VRS>(smem, src, H, W, y0, x0, span, VTH + n - 1, 0, rows, vec);
+  cp_async_commit();
+  const int col = threadIdx.x % VRS, vy0 = VR * (threadIdx.x / VRS);
+  int slot = vy0;  // the slot of stream row VTH k + vy0
+  for (int k = 0; k < steps; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // step k's rows are in; step k - 1 no longer reads the slots the next rows take
+    if (k + 1 < steps) {
+      const int next = VTH * (k + 1) + n - 1;  // the next step's first new stream row
+      ring_rows<VRS>(smem, src, H, W, y0 + next, x0, span, VTH, next % rows, rows, vec);
+      cp_async_commit();
+    }
+    if (col < span) {
+      const int y = ys + VTH * k + vy0;
+      float s[VR];
 #pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    const float* const row = vsum + ((long long)p * 5 + c) * hw + (long long)y * W;
-    run_sums<GC>(b[c], R, [&](int r) { return __ldg(row + min(max(x0 - R + r, 0), W - 1)); });
-  }
-  float* const o = out + (long long)p * 2 * hw + (long long)y * W;
+      for (int i = 0; i < VR; ++i) s[i] = t0 > 0 && y + i < ye ? dst[(long long)(y + i) * ws + col] : -0.0f;
+      vsums_from<VR, VRS>(s, smem + col, slot, rows, n);
 #pragma unroll
-  for (int i = 0; i < GC; ++i) {
-    if (x0 + i >= W) break;
-    // the plain version's roundings, as in the strip kernel
-    const float g11 = __fmul_rn(b[0][i], inv_area), g12 = __fmul_rn(b[1][i], inv_area);
-    const float g22 = __fmul_rn(b[2][i], inv_area), h1 = __fmul_rn(b[3][i], inv_area);
-    const float h2 = __fmul_rn(b[4][i], inv_area);
-    const float idet = 1.0f / (__fmul_rn(g11, g22) - __fmul_rn(g12, g12) + 1e-3f);
-    o[x0 + i] = __fmul_rn(__fmul_rn(g11, h2) - __fmul_rn(g12, h1), idet);
-    o[hw + x0 + i] = __fmul_rn(__fmul_rn(g22, h1) - __fmul_rn(g12, h2), idet);
+      for (int i = 0; i < VR; ++i)
+        if (y + i < ye) dst[(long long)(y + i) * ws + col] = s[i];
+    }
+    slot += VTH;
+    if (slot >= rows) slot -= rows;
   }
+}
+
+// Horizontal pass, the scale and the solve: block (strip of tw columns,
+// band of bh rows, pair).  The taps walk in chunks of ct (a multiple of 4):
+// for each, the five planes' vertical sums of the band, columns x0 - R + t0
+// .. on (clamped: the replicate border), are staged in shared memory, and a
+// thread adds the chunk's taps to the five sums of each of its 4-pixel runs,
+// which stay in registers.  Row q of the scratch holds column x at padl + x
+// with padl = R mod 4, so the staged span starts 16-byte aligned.
+__global__ void __launch_bounds__(HT, 3)
+box_hsum_solve_kernel(const float* __restrict__ vs, float* __restrict__ out, int H, int W, int ws,
+                      int padl, int R, int tw, int bh, int ct, float inv_area, bool vec_in,
+                      bool vec_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int x0 = blockIdx.x * tw, y0 = blockIdx.y * bh, nb = min(bh, H - y0);
+  const int ss = hstage_cols(tw, ct), taps = 2 * R + 1;
+  const long long hw = (long long)H * W, hws = (long long)H * ws;
+  const float* const src = vs + (long long)blockIdx.z * 5 * hws + (long long)y0 * ws + padl;
+  int hrow[HR], hx[HR];  // this thread's 4-pixel runs: row of the band, first column of the strip
+  float acc[5][HR][4];
+#pragma unroll
+  for (int e = 0; e < HR; ++e) {
+    const int u = threadIdx.x + HT * e;
+    hrow[e] = u / (tw / 4);
+    hx[e] = 4 * (u % (tw / 4));
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c][e][i] = -0.0f;
+  }
+  for (int t0 = 0; t0 < taps; t0 += ct) {
+    if (t0 > 0) __syncthreads();  // the last chunk's taps are done with the buffer
+    // a warp a staged row (plane c, row r of the band) at a time, a lane a 16-byte chunk
+    for (int c = threadIdx.x / 32 / nb, r = threadIdx.x / 32 % nb; c < 5;) {
+      const float* const line = src + c * hws + (long long)r * ws;
+      float* const dst = smem + (c * bh + r) * ss;
+      for (int q = 4 * (threadIdx.x % 32); q < ss; q += 128) {
+        const int gx = x0 - R + t0 + q;
+        if (vec_in && gx >= 0 && gx + 4 <= W) {
+          cp_async16(dst + q, line + gx);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cp_async4(dst + q + e, line + min(max(gx + e, 0), W - 1));
+        }
+      }
+      for (r += HT / 32; r >= nb; r -= nb) ++c;
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const int n = min(ct, taps - t0);
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+#pragma unroll
+      for (int e = 0; e < HR; ++e)
+        if (hrow[e] < nb) hsums_from(acc[c][e], smem + (c * bh + hrow[e]) * ss + hx[e], n);
+  }
+#pragma unroll
+  for (int e = 0; e < HR; ++e) {
+    const int y = y0 + hrow[e], xb = x0 + hx[e];
+    if (hrow[e] >= nb || xb >= W) continue;
+    float dx[4], dy[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // the plain version's roundings, as in the strip kernel
+      const float g11 = __fmul_rn(acc[0][e][i], inv_area), g12 = __fmul_rn(acc[1][e][i], inv_area);
+      const float g22 = __fmul_rn(acc[2][e][i], inv_area), h1 = __fmul_rn(acc[3][e][i], inv_area);
+      const float h2 = __fmul_rn(acc[4][e][i], inv_area);
+      const float idet = 1.0f / (__fmul_rn(g11, g22) - __fmul_rn(g12, g12) + 1e-3f);
+      dx[i] = __fmul_rn(__fmul_rn(g11, h2) - __fmul_rn(g12, h1), idet);
+      dy[i] = __fmul_rn(__fmul_rn(g22, h1) - __fmul_rn(g12, h2), idet);
+    }
+    float* ox = out + (long long)blockIdx.z * 2 * hw + (long long)y * W + xb;
+    float* oy = ox + hw;
+    if (vec_out && xb + 4 <= W) {
+      *reinterpret_cast<float4*>(ox) = make_float4(dx[0], dx[1], dx[2], dx[3]);
+      *reinterpret_cast<float4*>(oy) = make_float4(dy[0], dy[1], dy[2], dy[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (xb + i < W) {
+          ox[i] = dx[i];
+          oy[i] = dy[i];
+        }
+      }
+    }
+  }
+}
+
+// The opt-in to the largest dynamic shared memory for both passes, once per
+// device; a CUDA error or 0.
+int wide_opt_in(int dev) {
+  static PerDevice opted;
+  return once_per_device(opted, dev, [] {
+    const int err = (int)cudaFuncSetAttribute(box_vsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    return (int)cudaFuncSetAttribute(box_hsum_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     SMEM_MAX);
+  });
 }
 
 }  // namespace
@@ -676,23 +873,61 @@ extern "C" int relax_box_blur_solve_generic_slots(int winsize) {
   });
 }
 
-// m: (P, 5, H, W) f32, scratch: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32;
-// any odd winsize (the route above 65).
-extern "C" int relax_box_blur_solve_wide(const void* m, void* scratch, void* flow, int P, int H,
-                                         int W, int winsize, void* stream) {
-  if (winsize < 1 || winsize % 2 != 1 || 5LL * P > 65535 || H > 65535)
+// m: (P, 5, H, W) f32, scratch: (P, 5, H, ws) f32 -> flow: (P, 2, H, W) f32;
+// any odd winsize (the route above GENERIC_WINSIZE).  The plan is ops/boxsolve.py::
+// _wide_plan's: the scratch row stride ws (a multiple of 4, at least W + R
+// mod 4); the vertical pass's runs of seg rows (a multiple of 16) and taps a
+// launch nv (the whole window where its ring fits, else chunks of nv in
+// turn, each launch adding its taps to the sums of the ones before); the
+// horizontal pass's strips of tw columns, bands of bh rows (bh x tw / 4
+// runs at most HT x HR) and chunks of ct taps (a multiple of 4).
+extern "C" int relax_box_blur_solve_wide(const void* m, void* scratch, void* flow, int P, int H, int W,
+                                         int winsize, int ws, int seg, int nv, int tw, int bh, int ct,
+                                         void* stream) {
+  const int R = winsize / 2, padl = R & 3;
+  if (winsize < 1 || winsize % 2 != 1 || P < 1 || 5LL * P > 65535 || H < 1 || W < 1 || ws % 4 != 0 ||
+      ws < W + padl || seg < VTH || seg % VTH != 0 || (H + seg - 1) / seg > 65535 || nv < 1 ||
+      (long long)vring_rows(nv) * VRS * 4 > SMEM_MAX || tw < 4 || tw % 4 != 0 || bh < 1 ||
+      (long long)bh * (tw / 4) > HT * HR || (H + bh - 1) / bh > 65535 || ct < 4 || ct % 4 != 0 ||
+      20LL * bh * hstage_cols(tw, ct) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const int R = winsize / 2;
-  const float inv_area = (float)(1.0 / ((double)winsize * winsize));
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  const int attr = wide_opt_in(dev);
+  if (attr != cudaSuccess) return attr;
   cudaStream_t s = (cudaStream_t)stream;
-  box_rows_kernel<<<dim3((unsigned)((W + GX - 1) / GX), (unsigned)((H + GR - 1) / GR),
-                         (unsigned)(5 * P)), GX, 0, s>>>((const float*)m, (float*)scratch, H, W, R);
-  const int err = (int)cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  box_cols_solve_kernel<<<dim3((unsigned)((W + GX * GC - 1) / (GX * GC)), (unsigned)H, (unsigned)P),
-                          GX, 0, s>>>(
-      (const float*)scratch, (float*)flow, H, W, R, inv_area);
+  // 16-byte copies need 16-byte aligned rows
+  const bool vec_m = W % 4 == 0 && (uintptr_t)m % 16 == 0;
+  const dim3 vgrid((unsigned)((W + VRS - 1) / VRS), (unsigned)((H + seg - 1) / seg), (unsigned)(5 * P));
+  for (int t0 = 0; t0 < 2 * R + 1; t0 += nv) {
+    const int n = min(nv, 2 * R + 1 - t0);
+    box_vsum_kernel<<<vgrid, VT, (size_t)vring_rows(n) * VRS * 4, s>>>(
+        (const float*)m, (float*)scratch, H, W, ws, padl, R, t0, n, seg, vec_m);
+    const int err = (int)cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const float inv_area = (float)(1.0 / ((double)winsize * winsize));
+  const dim3 hgrid((unsigned)((W + tw - 1) / tw), (unsigned)((H + bh - 1) / bh), (unsigned)P);
+  box_hsum_solve_kernel<<<hgrid, HT, (size_t)20 * bh * hstage_cols(tw, ct), s>>>(
+      (const float*)scratch, (float*)flow, H, W, ws, padl, R, tw, bh, ct, inv_area,
+      (uintptr_t)scratch % 16 == 0, W % 4 == 0 && (uintptr_t)flow % 16 == 0);
   return (int)cudaGetLastError();
+}
+
+// The vertical pass's resident blocks on the current device at nv taps a
+// launch (SMs x blocks an SM); minus a CUDA error.
+extern "C" int relax_box_blur_solve_wide_slots(int nv) {
+  if (nv < 1 || (long long)vring_rows(nv) * VRS * 4 > SMEM_MAX) return -(int)cudaErrorInvalidValue;
+  const int dev = current_device();
+  if (dev < 0) return -(int)cudaErrorInvalidDevice;
+  const int attr = wide_opt_in(dev);
+  if (attr != cudaSuccess) return -attr;
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, box_vsum_kernel, VT,
+                                                                     (size_t)vring_rows(nv) * VRS * 4);
+  if (err != cudaSuccess) return -err;
+  return sms * max(per_sm, 1);
 }
 
 // m: (P, 5, H, W) f32 -> flow: (P, 2, H, W) f32; winsize odd, at most 17.

@@ -1,6 +1,6 @@
-"""The generic-radius K2 kernel (box blur + 2x2 solve, windows 19 to 65, one
-launch) against variants of itself and against the pair of kernels that
-takes windows above 65, on one card.
+"""The generic-radius K2 kernel (box blur + 2x2 solve, one launch, windows 19
+to 65, the route of 19 and 21) against variants of itself and against the
+wide route's pair of kernels, on one card.
 
     python scripts/torch_k2_generic_variants.py [--out build/k2_generic_variants.json]
         [--variants ring,th8,...] [--windows 19,21,31,63] [--rounds 3]
@@ -24,10 +24,10 @@ step and span:
   step more;
 - ``regs_free``: ``__launch_bounds__`` naming no count of blocks (ptxas
   chooses the registers);
-- ``pair``: the two-pass pair (``relax_box_blur_solve_wide``: a vertical
-  box sum into a scratch buffer, then the horizontal sum fused with the
-  solve), the generic route before the one-launch kernel, from the ``ring``
-  library; ``strip15``: the strip kernel at winsize 15, for scale.
+- ``pair``: the wide route (``relax_box_blur_solve_wide`` on the plan of
+  ``_wide_plan``: a vertical ring pass into a scratch buffer, then a staged
+  horizontal pass fused with the solve), from the ``ring`` library;
+  ``strip15``: the strip kernel at winsize 15, for scale.
 
 Each is held against ``box_blur_solve_plain`` at the 540p pyramid levels (16
 pairs) and at ragged shapes (widths 1, 3, a strip less one, a strip and one
@@ -57,7 +57,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from relaxtpu_torch import _native  # noqa: E402
-from relaxtpu_torch.ops.boxsolve import _ring_plan, box_blur_solve_plain  # noqa: E402
+from relaxtpu_torch.ops.boxsolve import _ring_plan, _wide_plan, _wide_taps, box_blur_solve_plain  # noqa: E402
 from relaxtpu_torch.ops.flow import pyramid_levels  # noqa: E402
 
 CSRC = os.path.join(ROOT, "relaxtpu_torch", "csrc")
@@ -139,8 +139,9 @@ def build(names: list) -> tuple[dict, dict]:
         for entry in ("relax_box_blur_solve_generic", "relax_box_blur_solve_wide", "relax_box_blur_solve"):
             getattr(lib, entry).argtypes = _native._SIGNATURES[entry]
             getattr(lib, entry).restype = ctypes.c_int
-        lib.relax_box_blur_solve_generic_slots.argtypes = [ctypes.c_int]
-        lib.relax_box_blur_solve_generic_slots.restype = ctypes.c_int
+        for query in ("relax_box_blur_solve_generic_slots", "relax_box_blur_solve_wide_slots"):
+            getattr(lib, query).argtypes = [ctypes.c_int]
+            getattr(lib, query).restype = ctypes.c_int
         libs[name] = lib
     return libs, regs
 
@@ -155,10 +156,13 @@ def runner(lib, name: str, ws: int):
             raise RuntimeError(f"{name} winsize {ws}: CUDA error {err}")
 
     if name == "pair":
+        slots = lib.relax_box_blur_solve_wide_slots(_wide_taps(ws))
+
         def run(m):
             p, _, h, w = m.shape
-            flow, scratch = m.new_empty((p, 2, h, w)), torch.empty_like(m)
-            check(lib.relax_box_blur_solve_wide(m.data_ptr(), scratch.data_ptr(), flow.data_ptr(), p, h, w, ws,
+            plan = _wide_plan(p, h, w, ws, slots)
+            flow, scratch = m.new_empty((p, 2, h, w)), m.new_empty((p, 5, h, plan[0]))
+            check(lib.relax_box_blur_solve_wide(m.data_ptr(), scratch.data_ptr(), flow.data_ptr(), p, h, w, ws, *plan,
                                                 stream()))
             return flow
         return run

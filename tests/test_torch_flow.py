@@ -5,12 +5,14 @@
   for in-band flow, the Pallas banded warp in interpret mode.
 - K2's plain version against ``box_blur_solve_pallas(..., interpret=True)``
   and ``_update_flow``, including non-tile shapes and windows past the strip
-  kernel's largest (19, 21, 23, 31, 33), which the generic-radius kernel
-  takes on the card; K2's routing between its three routes; the
-  generic-radius kernel's plan and index arithmetic (its ring slots, the
-  spans clamped at the edges, the 4-row blocks of the vertical pass and the
-  16-byte chunks of the horizontal one), emulated in torch and held
-  bit-equal to ``box_sum_plain`` at ragged shapes.
+  kernel's largest (19, 21, 23, 31, 33, which the generic-radius kernel
+  takes on the card, and 67 and 101, which the wide route takes); K2's
+  routing between its three routes; the generic-radius kernel's plan and
+  index arithmetic (its ring slots, the spans clamped at the edges, the
+  4-row blocks of the vertical pass and the 16-byte chunks of the
+  horizontal one) and the wide route's (both passes, their tap chunks, the
+  scratch's aligned rows), emulated in torch and held bit-equal to
+  ``box_sum_plain`` at ragged shapes.
 - The whole flow against ``farneback_flow(warp="exact")`` on a textured
   (dx=2, dy=1) pan, seed 5.  Measured on the CPU in f32: at 120x160 mean
   error 2.4e-7 px and interior (16 px in) max 2.9e-6 px; at 540x960 mean
@@ -33,7 +35,8 @@ from relaxtpu.ops.flow import farneback_flow as jax_flow
 from relaxtpu.ops.warp import warp_planes_banded_pallas
 from relaxtpu_torch.ops import boxsolve
 from relaxtpu_torch.ops.boxsolve import (
-    GENERIC_WINSIZE, RING_ROWS, RING_SPAN, STRIP_WINSIZE, _ring_plan, box_blur_solve, box_sum_plain,
+    GENERIC_WINSIZE, RING_ROWS, RING_SPAN, SMEM_MAX, STRIP_WINSIZE, WIDE_ROWS, WIDE_RUNS, WIDE_SPAN, _hstage_cols,
+    _ring_plan, _vring_rows, _wide_plan, _wide_taps, box_blur_solve, box_sum_plain,
 )
 from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, warp_planes_plain
@@ -115,10 +118,11 @@ def test_box_blur_solve_plain_matches_pallas_and_xla(rng, h, w):
     assert box_blur_solve.launches == 0
 
 
-@pytest.mark.parametrize("winsize", [19, 21, 23, 31, 33])
+@pytest.mark.parametrize("winsize", [19, 21, 23, 31, 33, 67, 101])
 def test_box_blur_solve_plain_matches_pallas_and_xla_wide_windows(rng, winsize):
     """Windows past the strip kernel's largest; at 31 the window spans
-    more than a fifth of the image's 67 rows."""
+    more than a fifth of the image's 67 rows, at 67 and 101 (the wide
+    route) all of them, at 101 more than they."""
     m = realistic_m(rng, 2, 67, 131)
     got = box_blur_solve(T(m), winsize).numpy()
     with jax.default_device(jax.devices("cpu")[0]):
@@ -130,17 +134,18 @@ def test_box_blur_solve_plain_matches_pallas_and_xla_wide_windows(rng, winsize):
 
 def test_box_blur_solve_refuses_a_window_past_the_kernels_largest():
     """The strip kernel is never handed a window past its largest
-    (``STRIP_WINSIZE``), nor the generic-radius kernel one past its
-    (``GENERIC_WINSIZE``): those go to the pair of kernels, which takes any
-    odd window, as the Pallas kernel does.  An even window is refused
-    before any launch (a meta tensor stands in for a CUDA one); the plain
-    version takes any odd window."""
-    assert (STRIP_WINSIZE, GENERIC_WINSIZE) == (17, 65)
+    (``STRIP_WINSIZE``), nor the generic-radius kernel one past its route's
+    (``GENERIC_WINSIZE``: the kernel takes windows to 65, but the wide route
+    is faster from 23 on): those go to the wide route's pair of kernels,
+    which takes any odd window, as the Pallas kernel does.  An even window
+    is refused before any launch (a meta tensor stands in for a CUDA one);
+    the plain version takes any odd window."""
+    assert (STRIP_WINSIZE, GENERIC_WINSIZE) == (17, 21)
     for winsize in (1, 5, 15, 17):
         assert boxsolve._entry(winsize) == "relax_box_blur_solve"
-    for winsize in (19, 21, 23, 31, 33, 63, 65):
+    for winsize in (19, 21):
         assert boxsolve._entry(winsize) == "relax_box_blur_solve_generic"
-    for winsize in (67, 101):
+    for winsize in (23, 31, 33, 63, 65, 67, 101, 423):
         assert boxsolve._entry(winsize) == "relax_box_blur_solve_wide"
     for winsize in (16, 0, -3):
         with pytest.raises(ValueError, match="odd and positive"):
@@ -323,13 +328,204 @@ def test_generic_radius_plan_at_the_main_path_levels():
     fill whole waves."""
     assert _ring_plan(16, 540, 960, 21, 264)[0] == 96
     assert [_ring_plan(16, h, w, 21, 264)[0] for h, w in ((68, 120), (135, 240), (270, 480))] == [60, 80, 96]
-    rows = _ring_plan(1, 8, 8, GENERIC_WINSIZE, 132)[2]
-    assert rows == RING_ROWS + 2 * (GENERIC_WINSIZE // 2)
+    rows = _ring_plan(1, 8, 8, 65, 132)[2]  # the kernel's largest window (GRMAX)
+    assert rows == RING_ROWS + 2 * 32
     assert 4 * (5 * rows * RING_SPAN + 2 * RING_ROWS * RING_VS) <= RING_SMEM_MAX
     for p, h, w in ((16, 540, 960), (16, 68, 120), (1, 1, 1)):
         tw, seg, _ = _ring_plan(p, h, w, 21, 264)
         steps, run = -(-h // RING_ROWS), seg // RING_ROWS
         assert 1 <= run <= steps
+
+
+# The wide route's threads a block (both passes) and its vertical pass's
+# rows a thread (csrc/boxsolve.cu: VT, VR).
+WIDE_THREADS, WIDE_VR = 256, 8
+
+
+def emulate_wide(m: torch.Tensor, winsize: int, plan: tuple, runs: int = WIDE_RUNS) -> torch.Tensor:
+    """The box sums of the wide route (``box_vsum_kernel`` then
+    ``box_hsum_solve_kernel``) on ``plan`` = (ws, seg, nv, tw, bh, ct), their
+    index arithmetic carried out in torch as the kernels do it (the five
+    planes at once; a pass's 4-pixel runs or a step's columns at once, in
+    the kernels' tap order): the vertical pass launch by launch (nv taps
+    each, each launch begun from the scratch sums of the ones before, the
+    first from -0), its ring rows staged into their slots (slot0 + lane,
+    then + LANES, wrapping) with the next step's rows staged before the
+    step reads the ring, the register window filled 4 ring rows a block (no
+    block across the wrap) with tails of 1 to 3 taps, the sums stored at
+    column R mod 4 + x of a scratch row of ws; the horizontal pass's bands,
+    strips and chunks of ct taps, each chunk's span staged from column
+    x0 - R + t0 (clamped, 16-byte aligned in the scratch), its 16-byte
+    chunks read inside the staged row.  NaN wherever a kernel has not
+    written (the scratch's padding columns included)."""
+    p, c, h, w = m.shape
+    ws, seg, nv, tw, bh, ct = plan
+    th, span, vr = WIDE_ROWS, WIDE_SPAN, WIDE_VR
+    r = winsize // 2
+    padl, taps = r & 3, 2 * r + 1
+    assert ws % 4 == 0 and ws >= w + padl and seg % th == 0 and ct % 4 == 0 and bh * (tw // 4) <= runs
+    lanes = WIDE_THREADS // (span // 4)
+    nan = float("nan")
+    scratch = torch.full((p, c, h, ws), nan)
+
+    def stage(ring, rows, y0, x0, sp, n, slot0):
+        cols = (x0 + torch.arange(span)).clamp(0, w - 1)
+        for lane in range(lanes):
+            slot = slot0 + lane - (rows if slot0 + lane >= rows else 0)
+            for i in range(lane, n, lanes):
+                ring[..., slot, : 4 * -(-sp // 4)] = m[..., min(max(y0 + i, 0), h - 1), :][..., cols[: 4 * -(-sp // 4)]]
+                slot += lanes
+                slot -= rows if slot >= rows else 0
+
+    def vsums_from(s, ring, rows, slot, n):
+        win = torch.full_like(s, nan)
+
+        def block(slot, nj, at):
+            assert slot % 4 == 0 and slot + nj <= rows  # a block never straddles the wrap
+            win[..., at : at + nj, :] = ring[..., slot : slot + nj, :]
+
+        def vtaps(slot, nj, at):
+            for j in range(nj):
+                assert slot % 4 == 0 and slot + nj <= rows
+                win[..., at + j, :] = ring[..., slot + j, :]
+                s.add_(win[..., (torch.arange(vr) + at + j + 1) % vr, :])
+
+        for b in range(vr // 4):
+            block(slot, 4, 4 * b)
+            slot = 0 if slot + 4 == rows else slot + 4
+        s.add_(win)
+        t = n - 1
+        while t >= vr:
+            for b in range(vr // 4):
+                vtaps(slot, 4, 4 * b)
+                slot = 0 if slot + 4 == rows else slot + 4
+            t -= vr
+        for b in range(vr // 4):
+            if 4 * b + 4 <= t:
+                vtaps(slot, 4, 4 * b)
+                slot = 0 if slot + 4 == rows else slot + 4
+            elif 0 < t - 4 * b < 4:
+                vtaps(slot, t - 4 * b, 4 * b)
+
+    for t0 in range(0, taps, nv):
+        n = min(nv, taps - t0)
+        rows = _vring_rows(n)
+        assert rows * span * 4 <= SMEM_MAX and rows >= 2 * th + n - 1
+        for x0 in range(0, w, span):
+            sp = min(span, w - x0)
+            for ys in range(0, h, seg):
+                ye = min(ys + seg, h)
+                ring = torch.full((p, c, rows, span), nan)
+                y0 = ys - r + t0
+                stage(ring, rows, y0, x0, sp, th + n - 1, 0)
+                for k in range(-(-(ye - ys) // th)):
+                    if ys + th * (k + 1) < ye:  # the next step's rows land while this one reads
+                        nxt = th * (k + 1) + n - 1
+                        stage(ring, rows, y0 + nxt, x0, sp, th, nxt % rows)
+                    for vy0 in range(0, th, vr):
+                        y = ys + th * k + vy0
+                        keep = min(vr, ye - y)
+                        s = torch.full((p, c, vr, span), -0.0)
+                        if t0 > 0 and keep > 0:
+                            s[..., :keep, :sp] = scratch[..., y : y + keep, padl + x0 : padl + x0 + sp]
+                        vsums_from(s, ring, rows, (th * k + vy0) % rows, n)
+                        if keep > 0:
+                            scratch[..., y : y + keep, padl + x0 : padl + x0 + sp] = s[..., :keep, :sp]
+
+    out = torch.full_like(m, nan)
+    u = torch.arange(runs)
+    for x0 in range(0, w, tw):
+        for y0 in range(0, h, bh):
+            nb, ss = min(bh, h - y0), _hstage_cols(tw, ct)
+            assert 20 * bh * ss <= SMEM_MAX
+            hrow, hx = u // (tw // 4), 4 * (u % (tw // 4))
+            hrow, hx = hrow[hrow < nb], hx[hrow < nb]
+            acc = [torch.full((p, c, len(hrow)), -0.0) for _ in range(4)]
+            for t0 in range(0, taps, ct):
+                assert (padl + x0 - r + t0) % 4 == 0  # the staged span starts 16-byte aligned
+                staged = torch.full((p, c, bh, ss), nan)
+                cols = (x0 - r + t0 + torch.arange(ss)).clamp(0, w - 1)
+                staged[..., :nb, :] = scratch[..., y0 : y0 + nb, :][..., padl + cols]
+                flat, base, n = staged.reshape(p, c, -1), hrow * ss + hx, min(ct, taps - t0)
+
+                def ld(at):
+                    assert bool(((at - base) % 4 == 0).all()) and int((at - hx - hrow * ss).max()) + 4 <= ss
+                    return [flat[..., at + i] for i in range(4)]
+
+                def htaps(a, b, nj):
+                    for j in range(1, nj + 1):
+                        for i in range(4):
+                            acc[i] = acc[i] + (a[i + j] if i + j < 4 else b[i + j - 4])
+
+                a, b = ld(base), ld(base + 4)
+                for i in range(4):
+                    acc[i] = acc[i] + a[i]
+                t, at = n - 1, base + 8
+                while t >= 8:
+                    htaps(a, b, 4)
+                    a = ld(at)
+                    htaps(b, a, 4)
+                    b = ld(at + 4)
+                    t, at = t - 8, at + 8
+                if t >= 4:
+                    htaps(a, b, 4)
+                    a = ld(at)
+                    htaps(b, a, t - 4)
+                else:
+                    htaps(a, b, t)
+            for i in range(4):
+                xx = x0 + hx + i
+                keep = xx < w
+                out[..., y0 + hrow[keep], xx[keep]] = acc[i][..., keep]
+    return out
+
+
+FIRST_CHUNKED = _wide_taps(10**6) + 2  # the first window whose vertical ring does not fit a block
+WIDE_WINDOWS = [67, 69, 101, 131, FIRST_CHUNKED]
+
+
+@pytest.mark.parametrize("winsize", WIDE_WINDOWS)
+def test_wide_route_plan_and_index_arithmetic_are_bit_equal_to_box_sum_plain(one_thread, winsize):
+    """The wide route's plan and both passes' index arithmetic, emulated
+    (the CPU cannot run the kernels), at ragged shapes: widths 1, 3 and 4,
+    one vertical strip (128 columns) less a column, one strip, one strip
+    and a column, 131; heights 1 and below the window; runs for 1, 7 and
+    264 resident blocks; and, at 1 resident block, a plan with both passes'
+    taps in chunks (the vertical pass's launches and the horizontal pass's
+    staged chunks) and horizontal strips of at most 128 columns.  Every
+    output is ``box_sum_plain``'s to the bit, and the plan fits a block's
+    shared memory.  At the last window the vertical ring of the whole
+    window does not fit, so its taps run in chunks on the default plan."""
+    assert _wide_taps(FIRST_CHUNKED - 2) == FIRST_CHUNKED - 2 and _wide_taps(FIRST_CHUNKED) < FIRST_CHUNKED
+    gen = torch.Generator().manual_seed(winsize)
+    shapes = [(1, 1, 1), (2, 1, 3), (1, 5, 4), (1, winsize - 2, WIDE_SPAN - 1), (1, 3, WIDE_SPAN),
+              (1, 2 * WIDE_ROWS + 3, WIDE_SPAN + 1), (2, 37, 131)]
+    for p, h, w in shapes:
+        m = torch.randn((p, 5, h, w), generator=gen) * 50
+        want = box_sum_plain(m, winsize)
+        plans = {(_wide_plan(p, h, w, winsize, slots), WIDE_RUNS) for slots in (1, 7, 264)}  # the distinct ones
+        if h < FIRST_CHUNKED - 2:  # (the emulation of the tallest shape's 421 bands would take 30 s)
+            plans.add((_wide_plan(p, h, w, winsize, 1, runs=32, vtaps=winsize // 3, htaps=4 * (winsize // 12)), 32))
+        for plan, runs in sorted(plans):
+            ws, seg, nv, tw, bh, ct = plan
+            assert seg % WIDE_ROWS == 0 and WIDE_ROWS <= seg <= WIDE_ROWS * -(-h // WIDE_ROWS)
+            assert _vring_rows(nv) * WIDE_SPAN * 4 <= SMEM_MAX and 20 * bh * _hstage_cols(tw, ct) <= SMEM_MAX
+            assert tw % 4 == 0 and 1 <= bh <= h and bh * tw // 4 <= runs
+            got = emulate_wide(m, winsize, plan, runs)
+            assert torch.equal(got, want), (p, h, w, plan, (got - want).abs().max())
+
+
+def test_wide_route_plan_at_the_main_path_levels():
+    """The wide plan at the 540p levels, winsize 67: the whole window in
+    one vertical launch (a ring of 100 rows, 51 KB), whole rows staged in
+    the horizontal pass (bands of 2 rows at 960 columns, 17 at 120), every
+    tap in one staged chunk, and runs that fill whole waves."""
+    assert _vring_rows(_wide_taps(67)) == 100
+    for (h, w), bh in zip(((68, 120), (135, 240), (270, 480), (540, 960)), (17, 8, 4, 2)):
+        ws, seg, nv, tw, got_bh, ct = _wide_plan(16, h, w, 67, 528)
+        assert (ws, nv, tw, got_bh, ct) == (w + 4, 67, w, bh, 68)
+        assert seg % WIDE_ROWS == 0 and 1 <= seg // WIDE_ROWS <= -(-h // WIDE_ROWS)
+    assert _wide_plan(4, 2160, 3840, 67, 528)[3] == 1920  # two strips at 4K
 
 
 def textured(rng, h, w, sigma=3.0):
