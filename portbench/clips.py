@@ -1,0 +1,101 @@
+"""The traffic generator: a pool of seeded clips held on the host as packed
+I420, as a decoder hands them over.
+
+A traffic file gives the geometry (width, height, frame rate, clip seconds), the
+pool's size, the loop (clients and videos in flight), and the content: a
+blurred random texture panned smoothly (a few px a frame) plus per-frame
+noise.  Frames are sampled as the ReLaX-VQA reference samples a file: every
+``frame_interval_for(framerate)``-th frame, each with its successor as the
+second frame of a pair.  Every seed gives the same sizes and counts; only
+the content differs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .weights import sub_seed
+
+
+def frame_interval_for(framerate: float) -> int:
+    """The reference's sampling interval: half the frame rate, rounded down."""
+    return math.ceil(framerate / 2) if framerate < 2 else int(framerate / 2)
+
+
+def sampled_frames(traffic: dict) -> tuple[list[int], list[int]]:
+    """Raw indices of the sampled frames and of the pairs' second frames."""
+    n = int(round(traffic["framerate"] * traffic["clip_seconds"]))
+    step = max(frame_interval_for(traffic["framerate"]), 1)
+    firsts = list(range(0, n, step))
+    return firsts, [f + 1 for f in firsts if f + 1 < n]
+
+
+@dataclasses.dataclass
+class Clip:
+    frames: np.ndarray  # (F, H*W*3/2) uint8 packed I420
+    nexts: np.ndarray   # (P, H*W*3/2)
+    h: int
+    w: int
+
+
+def bgr_to_i420(bgr: torch.Tensor) -> np.ndarray:
+    """(n, h, w, 3) uint8 BGR on any device -> packed I420 (n, h*w*3/2) on
+    the host, BT.601 limited range, 2x2 chroma means."""
+    b, g, r = bgr.float().unbind(-1)
+    y = 0.257 * r + 0.504 * g + 0.098 * b + 16.0
+    u = -0.148 * r - 0.291 * g + 0.439 * b + 128.0
+    v = 0.439 * r - 0.368 * g - 0.071 * b + 128.0
+
+    def sub(c):
+        return (c[:, 0::2, 0::2] + c[:, 0::2, 1::2] + c[:, 1::2, 0::2] + c[:, 1::2, 1::2]) * 0.25
+
+    def u8(c):
+        return c.round().clamp(0, 255).to(torch.uint8).reshape(len(bgr), -1)
+
+    return torch.cat([u8(y), u8(sub(u)), u8(sub(v))], dim=1).cpu().numpy()
+
+
+def synthetic_bgr(ts: list[int], traffic: dict, seed: int, device) -> torch.Tensor:
+    """(len(ts), h, w, 3) uint8 frames at raw indices ``ts`` of one clip: a
+    texture blurred by a Gaussian of ``blur_sigma`` px, panned by integer
+    offsets along sines of amplitude ``pan_px`` and period ``pan_period``
+    frames (direction and phase from the seed), plus Gaussian noise of
+    ``noise`` levels."""
+    h, w, amp = traffic["height"], traffic["width"], traffic["pan_px"]
+    margin = int(math.ceil(amp)) + 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ax, ay, px, py = (torch.rand(4, generator=gen, device=device) * torch.tensor([0.5, 0.5, 6.283, 6.283], device=device)
+                      + torch.tensor([0.5, 0.5, 0.0, 0.0], device=device)).tolist()
+    tex = torch.rand((3, 1, h + 2 * margin, w + 2 * margin), generator=gen, device=device) * 255
+    r = int(math.ceil(3 * traffic["blur_sigma"]))
+    x = torch.arange(-r, r + 1, device=device, dtype=torch.float32)
+    g = torch.exp(-x * x / (2 * traffic["blur_sigma"] ** 2))
+    g = g / g.sum()
+    tex = F.conv2d(F.pad(tex, (r, r, 0, 0), mode="reflect"), g.view(1, 1, 1, -1))
+    tex = F.conv2d(F.pad(tex, (0, 0, r, r), mode="reflect"), g.view(1, 1, -1, 1))[:, 0]
+    omega = 2 * math.pi / traffic["pan_period"]
+    out = torch.empty((len(ts), h, w, 3), dtype=torch.uint8, device=device)
+    for i, t in enumerate(ts):
+        ox = margin + int(round(amp * ax * math.sin(omega * t + px)))
+        oy = margin + int(round(amp * ay * math.sin(omega * t + py)))
+        fr = tex[:, oy:oy + h, ox:ox + w] + torch.randn((3, h, w), generator=gen, device=device) * traffic["noise"]
+        out[i] = fr.clamp(0, 255).to(torch.uint8).permute(1, 2, 0)
+    return out
+
+
+def pool(traffic: dict, seed: int, device) -> list[Clip]:
+    """``traffic["pool"]`` clips from ``seed``, made on ``device`` and held on the host."""
+    firsts, seconds = sampled_frames(traffic)
+    ts = sorted(set(firsts) | set(seconds))
+    pos = {t: i for i, t in enumerate(ts)}
+    out = []
+    for c in range(traffic["pool"]):
+        i420 = bgr_to_i420(synthetic_bgr(ts, traffic, sub_seed(seed, "clips", c), device))
+        out.append(Clip(i420[[pos[t] for t in firsts]], i420[[pos[t] for t in seconds]],
+                        traffic["height"], traffic["width"]))
+    return out
