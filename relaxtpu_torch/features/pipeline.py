@@ -33,6 +33,11 @@ decode the next video while this one computes.  All work stays on the
 current stream.  PyTorch runs eagerly, so nothing is padded to shape
 buckets: the means are plain means over the real rows, which is what the
 JAX package's masked means over its padded rows compute.
+
+Each public program's call is one ``relaxtpu.enqueue`` span holding the
+spans of its stages (``utils.profiling.span``: recorded only while a
+profiler runs).  The spans live here alone: ``ops/`` and ``models/`` carry
+none.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from relaxtpu_torch.ops.fragments import (
     top_patch_indices,
 )
 from relaxtpu_torch.ops.resize import quantize_u8_levels, resize_hw
+from relaxtpu_torch.utils.profiling import span
 
 FARNEBACK_PARAMS = dict(
     pyr_scale=0.5, levels=3, winsize=15, iterations=3, poly_n=5, poly_sigma=1.2
@@ -148,28 +154,32 @@ class FeatureExtractor:
     def _backbone_inputs(self, bgr_u8: torch.Tensor, resize: bool, networks=NETWORKS):
         """(B, H, W, 3) uint8 BGR -> ResNet and ViT inputs (B, 3, 224, 224);
         None for a network not in ``networks``."""
-        rgb = bgr_u8.flip(-1).permute(0, 3, 1, 2).to(torch.float32) / 255.0
+        with span("prep"):
+            rgb = bgr_u8.flip(-1).permute(0, 3, 1, 2).to(torch.float32) / 255.0
 
-        def sized(method: str) -> torch.Tensor:
-            if resize and tuple(rgb.shape[-2:]) != (224, 224):
-                return quantize_u8_levels(resize_hw(rgb, (224, 224), method, antialias=True))
-            return rgb
+            def sized(method: str) -> torch.Tensor:
+                if resize and tuple(rgb.shape[-2:]) != (224, 224):
+                    return quantize_u8_levels(resize_hw(rgb, (224, 224), method, antialias=True))
+                return rgb
 
-        x_rn = resnet_preprocess(sized("linear")).to(self.dtype) if "resnet50" in networks else None
-        x_vit = sized("lanczos3").to(self.dtype) if "vit" in networks else None
-        return x_rn, x_vit
+            x_rn = resnet_preprocess(sized("linear")).to(self.dtype) if "resnet50" in networks else None
+            x_vit = sized("lanczos3").to(self.dtype) if "vit" in networks else None
+            return x_rn, x_vit
 
     @staticmethod
     def _fragments(prev: torch.Tensor, nxt: torch.Tensor):
         """(P, H, W, 3) uint8 pairs -> ori and merged fragments (P, 224, 224, 3)."""
-        residual = absdiff(nxt, prev)
-        ids = top_patch_indices(patch_scores(residual))
-        diff_frag = gather_fragment(residual, ids)
-        ori_frag = gather_fragment(prev, ids)
-        flow = farneback_flow(bgr_to_gray(prev), bgr_to_gray(nxt), **FARNEBACK_PARAMS)
-        flow_img = flow_to_bgr(flow)
-        flow_frag = gather_fragment(flow_img, top_patch_indices(patch_scores(flow_img)))
-        return ori_frag, merge_fragments(diff_frag, flow_frag)
+        with span("fragments"):
+            residual = absdiff(nxt, prev)
+            ids = top_patch_indices(patch_scores(residual))
+            diff_frag = gather_fragment(residual, ids)
+            ori_frag = gather_fragment(prev, ids)
+            gray_prev, gray_next = bgr_to_gray(prev), bgr_to_gray(nxt)
+            with span("flow"):
+                flow = farneback_flow(gray_prev, gray_next, **FARNEBACK_PARAMS)
+            flow_img = flow_to_bgr(flow)
+            flow_frag = gather_fragment(flow_img, top_patch_indices(patch_scores(flow_img)))
+            return ori_frag, merge_fragments(diff_frag, flow_frag)
 
     def _backbones(self, x_rn: torch.Tensor | None, x_vit: torch.Tensor | None):
         """-> ResNet layer stack (B, 13120), ResNet pool (B, 2051) and ViT
@@ -177,10 +187,13 @@ class FeatureExtractor:
         gives None."""
         stack = pool = vit = None
         if x_rn is not None:
-            taps = self.resnet(x_rn)
-            stack, pool = layer_stack_feature(taps), resnet_pool_feature(taps["avgpool"])
+            with span("resnet"):
+                taps = self.resnet(x_rn)
+            with span("aggregate"):
+                stack, pool = layer_stack_feature(taps), resnet_pool_feature(taps["avgpool"])
         if x_vit is not None:
-            vit = self.vit(x_vit)
+            with span("vit"):
+                vit = self.vit(x_vit)
         return stack, pool, vit
 
     @staticmethod
@@ -216,10 +229,11 @@ class FeatureExtractor:
         stack, pool, vit = self._backbones(x_rn, x_vit)
         # a video with no pairs has empty fragment rows, whose means are NaN
         # (the JAX package's masked means divide by a count of 0)
-        frag_rn, frag_vit = self._fragment_rows(stack[f:], pool[f:], vit[f:], p)
-        segments = zip(stack[:f].split(n_frames), vit[:f].split(n_frames),
-                       frag_rn.split(n_pairs), frag_vit.split(n_pairs))
-        return torch.stack([torch.cat([x.mean(0) for x in seg]) for seg in segments])
+        with span("aggregate"):
+            frag_rn, frag_vit = self._fragment_rows(stack[f:], pool[f:], vit[f:], p)
+            segments = zip(stack[:f].split(n_frames), vit[:f].split(n_frames),
+                           frag_rn.split(n_pairs), frag_vit.split(n_pairs))
+            return torch.stack([torch.cat([x.mean(0) for x in seg]) for seg in segments])
 
     def _video_vec_chunked(self, frames, pairs, n_pairs: int, chunk: int) -> torch.Tensor:
         """One video with more pairs than the flow stage takes at once ->
@@ -231,10 +245,13 @@ class FeatureExtractor:
         for s in range(0, n_pairs, chunk):
             ori, merged = self._fragments(*pairs(s, min(s + chunk, n_pairs)))
             x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), resize=False)
-            frag_rn, frag_vit = self._fragment_rows(*self._backbones(x_rn, x_vit), len(ori))
-            sum_rn = sum_rn + frag_rn.sum(0)
-            sum_vit = sum_vit + frag_vit.sum(0)
-        return torch.cat([stack.mean(0), vit.mean(0), sum_rn / n_pairs, sum_vit / n_pairs])
+            rows = self._backbones(x_rn, x_vit)
+            with span("aggregate"):
+                frag_rn, frag_vit = self._fragment_rows(*rows, len(ori))
+                sum_rn = sum_rn + frag_rn.sum(0)
+                sum_vit = sum_vit + frag_vit.sum(0)
+        with span("aggregate"):
+            return torch.cat([stack.mean(0), vit.mean(0), sum_rn / n_pairs, sum_vit / n_pairs])
 
     # ----------------------------------------------------------------- input
     def _upload(self, arrays) -> torch.Tensor:
@@ -245,10 +262,11 @@ class FeatureExtractor:
         arrays = [np.asarray(a) for a in arrays]
         if any(a.dtype != np.uint8 for a in arrays):
             raise ValueError("frame stacks must be uint8")
-        host = torch.empty((sum(len(a) for a in arrays), *arrays[0].shape[1:]), dtype=torch.uint8,
-                           pin_memory=self.device.type == "cuda")
-        np.concatenate(arrays, out=host.numpy())
-        return host.to(self.device, non_blocking=True)
+        with span("upload"):
+            host = torch.empty((sum(len(a) for a in arrays), *arrays[0].shape[1:]), dtype=torch.uint8,
+                               pin_memory=self.device.type == "cuda")
+            np.concatenate(arrays, out=host.numpy())
+            return host.to(self.device, non_blocking=True)
 
     def _upload_bgr(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8):
         """Three BGR stacks -> (frames, prev, nxt) on the device.  Where prev
@@ -268,7 +286,8 @@ class FeatureExtractor:
         chunk at a time."""
         def pairs(start: int, stop: int):
             prev = take_rows(frames, prev_frame_runs(n_frames, n_pairs, start, stop))
-            return prev, yuv420_to_bgr(*unpack_i420(nbuf[start:stop], h, w))
+            with span("colorspace"):
+                return prev, yuv420_to_bgr(*unpack_i420(nbuf[start:stop], h, w))
         return pairs
 
     # ------------------------------------------------------------ public API
@@ -285,14 +304,16 @@ class FeatureExtractor:
         A video with more pairs than ``max_pair_batch`` takes the chunked
         path.
         """
-        n_frames, n_pairs = len(frames_i420), len(next_i420)
-        fbuf, nbuf = self._upload([frames_i420]), self._upload([next_i420])
-        frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
-        pairs = self._i420_pairs(frames, nbuf, h, w, [n_frames], [n_pairs])
-        chunk = self.max_pair_batch(h, w)
-        if n_pairs > chunk:
-            return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
-        return self._videos_vec(frames, pairs, [n_frames], [n_pairs], 0)[0]
+        with span("enqueue"):
+            n_frames, n_pairs = len(frames_i420), len(next_i420)
+            fbuf, nbuf = self._upload([frames_i420]), self._upload([next_i420])
+            with span("colorspace"):
+                frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
+            pairs = self._i420_pairs(frames, nbuf, h, w, [n_frames], [n_pairs])
+            chunk = self.max_pair_batch(h, w)
+            if n_pairs > chunk:
+                return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
+            return self._videos_vec(frames, pairs, [n_frames], [n_pairs], 0)[0]
 
     @torch.inference_mode()
     def video_feature_async(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8, bucket: int = 8) -> torch.Tensor:
@@ -305,18 +326,19 @@ class FeatureExtractor:
         more pairs than ``max_pair_batch`` takes the chunked path, as the
         I420 program does.
         """
-        frames, prev, nxt = self._upload_bgr(frames_bgr_u8, prev_bgr_u8, next_bgr_u8)
-        n_pairs = len(nxt)
-        if len(prev) != n_pairs:
-            raise ValueError(f"prev and next must pair up, got {len(prev)} and {n_pairs} frames")
+        with span("enqueue"):
+            frames, prev, nxt = self._upload_bgr(frames_bgr_u8, prev_bgr_u8, next_bgr_u8)
+            n_pairs = len(nxt)
+            if len(prev) != n_pairs:
+                raise ValueError(f"prev and next must pair up, got {len(prev)} and {n_pairs} frames")
 
-        def pairs(start: int, stop: int):
-            return prev[start:stop], nxt[start:stop]
+            def pairs(start: int, stop: int):
+                return prev[start:stop], nxt[start:stop]
 
-        chunk = self.max_pair_batch(frames.shape[1], frames.shape[2])
-        if n_pairs > chunk:
-            return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
-        return self._videos_vec(frames, pairs, [len(frames)], [n_pairs], 0)[0]
+            chunk = self.max_pair_batch(frames.shape[1], frames.shape[2])
+            if n_pairs > chunk:
+                return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
+            return self._videos_vec(frames, pairs, [len(frames)], [n_pairs], 0)[0]
 
     def video_feature_async_yuv(self, frames_yuv, next_yuv, bucket: int = 8) -> torch.Tensor:
         """(y, u, v) plane stacks, y (B, H, W) and u, v (B, H/2, W/2) uint8,
@@ -338,14 +360,16 @@ class FeatureExtractor:
         default, 0 for one chunk.  ``bucket`` is accepted and ignored: no
         video is padded.
         """
-        n_frames = [len(a) for a in frames_i420_list]
-        n_pairs = [len(a) for a in next_i420_list]
-        fbuf, nbuf = self._upload(frames_i420_list), self._upload(next_i420_list)
-        frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
-        pairs = self._i420_pairs(frames, nbuf, h, w, n_frames, n_pairs)
-        if chunk is None:
-            chunk = self.max_pair_batch(h, w)
-        return self._videos_vec(frames, pairs, n_frames, n_pairs, chunk)
+        with span("enqueue"):
+            n_frames = [len(a) for a in frames_i420_list]
+            n_pairs = [len(a) for a in next_i420_list]
+            fbuf, nbuf = self._upload(frames_i420_list), self._upload(next_i420_list)
+            with span("colorspace"):
+                frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
+            pairs = self._i420_pairs(frames, nbuf, h, w, n_frames, n_pairs)
+            if chunk is None:
+                chunk = self.max_pair_batch(h, w)
+            return self._videos_vec(frames, pairs, n_frames, n_pairs, chunk)
 
     @torch.inference_mode()
     def frame_features_dev(self, frames: torch.Tensor, networks=NETWORKS):
@@ -353,8 +377,9 @@ class FeatureExtractor:
         (F, 13120) and ViT stats (F, 2304), f32 on the device, not fetched.
         The frames are resized and quantised as in the video programs.  A
         network not in ``networks`` is not run and gives None."""
-        stack, _, vit = self._backbones(*self._backbone_inputs(frames, True, networks))
-        return stack, vit
+        with span("enqueue"):
+            stack, _, vit = self._backbones(*self._backbone_inputs(frames, True, networks))
+            return stack, vit
 
     @torch.inference_mode()
     def pair_features_dev(self, prev: torch.Tensor, nxt: torch.Tensor, networks=NETWORKS):
@@ -362,13 +387,17 @@ class FeatureExtractor:
         (P, 15171) and frag_vit (P, 4608), f32 on the device, not fetched;
         fragments and backbones run a chunk of ``max_pair_batch`` pairs at a
         time.  A network not in ``networks`` is not run and gives None."""
-        chunk = self.max_pair_batch(prev.shape[1], prev.shape[2])
-        rows = []
-        for s in range(0, len(prev), chunk):
-            ori, merged = self._fragments(prev[s : s + chunk], nxt[s : s + chunk])
-            x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), False, networks)
-            rows.append(self._fragment_rows(*self._backbones(x_rn, x_vit), len(ori)))
-        return tuple(None if parts[0] is None else torch.cat(parts) for parts in zip(*rows))
+        with span("enqueue"):
+            chunk = self.max_pair_batch(prev.shape[1], prev.shape[2])
+            rows = []
+            for s in range(0, len(prev), chunk):
+                ori, merged = self._fragments(prev[s : s + chunk], nxt[s : s + chunk])
+                x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), False, networks)
+                out = self._backbones(x_rn, x_vit)
+                with span("aggregate"):
+                    rows.append(self._fragment_rows(*out, len(ori)))
+            with span("aggregate"):
+                return tuple(None if parts[0] is None else torch.cat(parts) for parts in zip(*rows))
 
     def frame_features(self, frames_bgr_u8) -> tuple[np.ndarray, np.ndarray]:
         """(F, H, W, 3) uint8 BGR -> resnet stack (F, 13120), ViT stats
