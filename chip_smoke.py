@@ -10,9 +10,10 @@ Phases (any failed check raises, so the exit code is not 0):
    of tensor-core instructions in each K3 function's SASS (cuobjdump),
    failing if a bf16 K3 function (short or long) has none, if the long K3
    (the bf16 ring kernel and the f32 one-pass kernel at D 32 and 64 among
-   them), the generic-radius K2 or the wide-window K2 functions are
-   missing, or if the ring kernel, the one-pass kernel, the generic-radius
-   K2 or either wide-window K2 pass spills;
+   them), the generic-radius K2, the wide-window K2 or the polynomial
+   expansion functions are missing, or if the ring kernel, the one-pass
+   kernel, the generic-radius K2, either wide-window K2 pass or the
+   expansion spills;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (matrix update) and K2 (box blur + solve) at the four 540p and the four
    1080p pyramid levels with 16 pairs, at the 4K finest level (2160x3840)
@@ -36,7 +37,12 @@ Phases (any failed check raises, so the exit code is not 0):
    contiguous and as packed-qkv slices,
    each call launching the entry ``_plan`` names; the
    long entry called directly at N = 197 and 256 against the short one;
-   every input sits at the start of a NaN-filled allocation; then the
+   every input sits at the start of a NaN-filled allocation; the
+   polynomial expansion (``csrc/polyexp.cu``) against its plain version
+   with ``torch.equal`` on the card and against the CPU, at the 540p and
+   1080p levels with 16 pairs and at radii 1-60 (the run-time-radius
+   kernel but at 5) on the edges of its plan, aligned and offset, into
+   NaN-filled outputs (``check_poly_expansion``); then the
    flow's live f32 planes a pair at 1080p (``max_memory_allocated`` around
    ``farneback_flow``, 16 pairs) must fit the pipeline's working-set model;
    the long K3 timed at (48, 577, 12, 64) (ViT-B/16 at 384x384) and at the
@@ -49,7 +55,8 @@ Phases (any failed check raises, so the exit code is not 0):
 5. the full-width main path: a seeded 540x960 raw I420 clip of 32 frames at
    4 fps (16 frames, 16 pairs) through ``VideoQualityPredictor.predict_file``
    with seeded ResNet-50, ViT-B/16 (depth 12) and MLP weights, in bf16 and
-   in f32; K1, K2 and K3 must each launch 12 times per video, the MOS must
+   in f32; K1, K2 and K3 must each launch 12 times per video and the
+   expansion 4 times (8 on phase 6's 1080p chunked path), the MOS must
    be finite and the bf16 vector within cosine 0.9999 of the f32 one;
    then one more video records every kernel call's inputs, and each kernel,
    its plain version and (for K3) ``F.scaled_dot_product_attention`` are
@@ -260,7 +267,7 @@ from relaxtpu_torch.ops.attention import mha, mha_plain
 from relaxtpu_torch.ops import boxsolve as boxsolve_mod
 from relaxtpu_torch.ops.boxsolve import GENERIC_WINSIZE, STRIP_WINSIZE, box_blur_solve, box_blur_solve_plain
 from relaxtpu_torch.ops.colorspace import bgr_to_gray
-from relaxtpu_torch.ops.flow import farneback_flow, pyramid_levels
+from relaxtpu_torch.ops.flow import POLY_NMAX, POLY_SPAN, farneback_flow, poly_expansion, poly_expansion_plain, pyramid_levels
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
 from relaxtpu_torch.parallel.distributed import initialize
 from relaxtpu_torch.parallel.eval import ShardedVideoEvaluator
@@ -307,7 +314,11 @@ def k2_flops_per_px(winsize: int = 15) -> int:
     """5 planes x 2 (winsize - 1) box adds, scaling, the 2x2 solve: 155 at 15."""
     return 10 * (winsize - 1) + 15
 
-TOL = {"K1": 1e-5, "K2": 1e-4, "K3_f32": 1e-4, "K3_bf16": 2e-2}
+# the polynomial expansion's rounded products and adds a pixel at radius n (206 at 5), at the add rate
+def pe_flops_per_px(n: int = 5) -> int:
+    return 18 * (2 * n + 1) + 8
+
+TOL = {"K1": 1e-5, "K2": 1e-4, "K3_f32": 1e-4, "K3_bf16": 2e-2, "PE": 0.0}
 
 
 def gpu_line() -> str:
@@ -450,9 +461,10 @@ def report_build(so: str) -> dict:
     of tensor-core instructions (HMMA/HGMMA) in each K3 function's SASS
     (cuobjdump from the toolkit that built them); raises if a bf16 K3
     function, short or long, has none, or if the long K3 kernels, the
-    generic-radius K2 kernel or the wide-window K2's two passes spill."""
+    generic-radius K2 kernel, the wide-window K2's two passes or the
+    polynomial expansion kernel spill."""
     funcs = {}
-    for src in ("warp.cu", "boxsolve.cu", "attention.cu"):
+    for src in ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu"):
         name = None
         for line in open(os.path.join(_native.BUILD_DIR, src + ".log")):
             if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -473,17 +485,19 @@ def report_build(so: str) -> dict:
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
         kernel = re.search(r"(update_matrices|box_blur_solve|box_ring_solve|box_vsum|box_hsum_solve|mha_bf16(_long|_ring)?"
-                           r"|mha_f32(_long|_online)?)_kernel", name)
+                           r"|mha_f32(_long|_online)?|poly_expansion)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
         mma = f"; {f['tensor_core_instructions']} HMMA/HGMMA" if "mha" in name else ""
         print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
     if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "mha_f32_online",
-                                                    "box_ring_solve", "box_vsum", "box_hsum_solve")):
-        raise AssertionError("the long K3 or the generic-radius or wide-window K2 functions are missing "
-                             "from the build")
-    for kernel in ("mha_bf16_ring", "mha_f32_online", "box_ring_solve", "box_vsum", "box_hsum_solve"):
+                                                    "box_ring_solve", "box_vsum", "box_hsum_solve",
+                                                    "poly_expansion")):
+        raise AssertionError("the long K3, the generic-radius or wide-window K2 or the expansion functions are "
+                             "missing from the build")
+    for kernel in ("mha_bf16_ring", "mha_f32_online", "box_ring_solve", "box_vsum", "box_hsum_solve",
+                   "poly_expansion"):
         fs = {n: f for n, f in funcs.items() if kernel in n}
         if any("0 bytes spill stores" not in f.get("spill", "") for f in fs.values()):
             raise AssertionError(f"the {kernel} kernel spills: {fs}")
@@ -624,6 +638,67 @@ def check_flow_kernels(gen: torch.Generator) -> dict:
     return worst
 
 
+def pe_into_nan(x: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """The expansion kernel launched as ``poly_expansion`` launches it, but
+    into a NaN-filled output, so an element it does not write stays NaN."""
+    h, w = x.shape[-2:]
+    out = torch.full((*x.shape[:-2], 5, h, w), float("nan"), device=x.device)
+    images = x.numel() // (h * w)
+    tw, seg, _ = flow_mod._poly_plan(images, h, w, n, flow_mod._poly_resident(x.device, n))
+    _native.launch(flow_mod._POLY, x.device, x.data_ptr(), out.data_ptr(), images, h, w, n,
+                   flow_mod._poly_coeffs_f32(n, sigma).ctypes.data, tw, seg)
+    return out
+
+
+def check_poly_expansion(gen: torch.Generator) -> float:
+    """The polynomial expansion kernel against ``poly_expansion_plain`` with
+    ``torch.equal``, on the same CUDA input and against the CPU: 32 images
+    (16 pairs) at the four 540p and the four 1080p levels (the CPU on the
+    first pair), radius 5, through the wrapper and into NaN-filled outputs;
+    then at radii 1, 2, 5, 7, 9 and
+    ``POLY_NMAX`` on 2 images at the edges of the plan (W 1, 3, 4, the strip
+    128 - 2 n4 less one, itself and one more, 131; H 1, 2n, 35), aligned and
+    one float into the allocation.  Every input sits in a NaN-filled
+    allocation.  Returns the largest |kernel - plain| (0: every check
+    bit-identical); raises on any difference or a wrapper call that did not
+    launch once."""
+    worst, checks, calls, n0 = 0.0, 0, 0, poly_expansion.launches
+
+    def one(x: torch.Tensor, n: int, sigma: float, label: str, part) -> None:
+        nonlocal worst, checks, calls
+        want = poly_expansion_plain(x, n, sigma)
+        want_cpu = poly_expansion_plain(part(x).cpu(), n, sigma)
+        gots = [poly_expansion(x, n, sigma), pe_into_nan(x, n, sigma)]
+        calls += 1
+        for got in gots:
+            worst = max(worst, (got - want).abs().max().item())
+            if not torch.equal(got, want) or not torch.equal(part(got).cpu(), want_cpu):
+                raise AssertionError(f"expansion {label} n {n}: kernel differs from its plain version "
+                                     f"(|kernel - plain| {(got - want).abs().max().item()})")
+            checks += 1
+
+    for tag, (h, w) in [("540p", lv[1:]) for lv in pyramid_levels(H, W)] + \
+                       [("1080p", lv[1:]) for lv in pyramid_levels(H_HI, W_HI)]:
+        x = nan_padded(torch.rand((2, PAIRS, h, w), generator=gen, device="cuda") * 255)
+        one(x, 5, 1.2, f"{tag} 2x{PAIRS}x{h}x{w}", lambda t: t[:, :1])
+        del x
+        torch.cuda.empty_cache()
+    for n in (1, 2, 5, 7, 9, POLY_NMAX):
+        strip = POLY_SPAN - 2 * ((n + 3) & ~3)
+        for hk in (1, 2 * n, 35):
+            for wk in sorted({1, 3, 4, max(strip - 1, 1), strip, strip + 1, 131}):
+                x = torch.rand((2, hk, wk), generator=gen, device="cuda") * 255
+                for at in (0, 1):
+                    one(nan_padded(x, at=at), n, 1.2 if n == 5 else 0.3 * n, f"2x{hk}x{wk}{' +1' * at}",
+                        lambda t: t)
+    launched = poly_expansion.launches - n0
+    print(f"  polynomial expansion: {checks} checks bit-identical to the plain version on the card and the "
+          f"CPU (largest |kernel - plain| {worst:g}); the wrapper launched {launched} times in {calls} calls")
+    if launched != calls:
+        raise AssertionError(f"expansion wrapper: {launched} launches in {calls} calls")
+    return worst
+
+
 def check_attention_kernel(gen: torch.Generator) -> dict:
     """K3 in f32 and bf16 at the ViT shape and at N in {1, 17, 64, 197, 208,
     256} x D in {32, 64} (the short entries), and at N in {257, 300, 577,
@@ -679,8 +754,8 @@ def check_attention_kernel(gen: torch.Generator) -> dict:
 def record_kernel_inputs(run) -> dict:
     """``run()`` (one more video or batch) with the three wrappers wrapped
     where the pipeline calls them, keeping every call's inputs."""
-    calls = {"K1": [], "K2": [], "K3": []}
-    saved = (flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha)
+    calls = {"K1": [], "K2": [], "K3": [], "PE": []}
+    saved = (flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha, flow_mod.poly_expansion)
 
     def keep(key, fn):
         def wrapped(*args, **kwargs):
@@ -691,11 +766,12 @@ def record_kernel_inputs(run) -> dict:
     flow_mod.update_matrices = keep("K1", update_matrices)
     flow_mod.box_blur_solve = keep("K2", box_blur_solve)
     vit_mod.mha = keep("K3", mha)
+    flow_mod.poly_expansion = keep("PE", poly_expansion)
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha = saved
+        flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha, flow_mod.poly_expansion = saved
     return calls
 
 
@@ -705,8 +781,8 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
     and, for the kernel and SDPA, by the profiler's device durations alone
     (``device_ms``); the kernel held against the plain version on those
     inputs; the bound from those inputs' sizes."""
-    kernel = {"K1": update_matrices, "K2": box_blur_solve, "K3": mha}
-    plain = {"K1": update_matrices_plain, "K2": box_blur_solve_plain, "K3": mha_plain}
+    kernel = {"K1": update_matrices, "K2": box_blur_solve, "K3": mha, "PE": poly_expansion}
+    plain = {"K1": update_matrices_plain, "K2": box_blur_solve_plain, "K3": mha_plain, "PE": poly_expansion_plain}
     out = {}
     for key, recorded in calls.items():
         r = {"calls": len(recorded), "err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -717,6 +793,8 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
             err, rel = rel_err(got, want)
             tol = TOL[f"K3_{tag}"] if key == "K3" else TOL[key]
             check(f"{key} {tag} {label} call {tuple(args[0].shape)}", rel, tol, verbose)
+            if key == "PE" and not torch.equal(got, want):
+                raise AssertionError(f"PE {tag} {label} call {tuple(args[0].shape)}: not bit-identical")
             r["err"], r["rel"] = max(r["err"], err), max(r.get("rel", 0.0), rel)
             kernel_fns.append(lambda args=args, kwargs=kwargs: kernel[key](*args, **kwargs))
             r["ms"] += cuda_ms(kernel_fns[-1])
@@ -729,19 +807,25 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
                 b, n, h, d = args[0].shape
                 r["bytes"] += 4.0 * b * n * h * d * args[0].element_size()
                 r["flops"] += 4.0 * b * h * n * n * d
+            elif key == "PE":
+                px = args[0].numel()
+                r["bytes"] += px * 6 * 4
+                r["flops"] += px * pe_flops_per_px(args[1])
             else:
                 px = args[0].shape[0] * args[0].shape[-2] * args[0].shape[-1]
                 r["bytes"] += px * (17 if key == "K1" else 7) * 4
                 r["flops"] += px * (K1_FLOPS_PER_PX if key == "K1" else
                                     k2_flops_per_px(kwargs.get("winsize", args[1] if len(args) > 1 else 15)))
         r["bound_ms"], r["bound_by"] = bound(
-            r["bytes"], r["flops"], args[0].dtype, F32_ADDS_PER_S if key == "K2" else None)
+            r["bytes"], r["flops"], args[0].dtype, F32_ADDS_PER_S if key in ("K2", "PE") else None)
         r["device_ms"] = device_ms(kernel_fns)
         r["library_device_ms"] = device_ms(library_fns, per_call=None) if library_fns else None
+        share = f"{r['bound_ms'] / r['device_ms']:.1%}" if r["device_ms"] else "not measured"
         print(f"  {key} {tag} {label}: {r['calls']} calls (largest error / max |plain| {r['rel']:.3e}), "
               f"{r['ms']:.4f} ms "
               f"(device only {r['device_ms']}; plain {r['plain_ms']:.4f}; library {r['library_ms']}, "
-              f"device only {r['library_device_ms']}; bound {r['bound_ms']:.4f} by {r['bound_by']})")
+              f"device only {r['library_device_ms']}; bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+              f"{share} of device ms)")
         out[key] = r
     return out
 
@@ -820,7 +904,7 @@ def slice_counts() -> dict:
 
 
 def reset_counts() -> None:
-    update_matrices.launches = box_blur_solve.launches = mha.launches = 0
+    update_matrices.launches = box_blur_solve.launches = mha.launches = poly_expansion.launches = 0
     box_blur_solve.generic_launches = box_blur_solve.wide_launches = mha.long_launches = 0
 
 
@@ -972,12 +1056,16 @@ def run_main_path() -> dict:
         mos = pred.predict_file(clip, framerate=4.0, width=W, height=H)
         n = counts()
         lap(f"{tag} first video")
-        print(f"  {tag}: MOS {mos!r}, launches per video {n}")
+        print(f"  {tag}: MOS {mos!r}, launches per video {n}, of the expansion {poly_expansion.launches}")
         if not math.isfinite(mos):
             raise AssertionError(f"{tag} MOS is not finite: {mos}")
         if n != {"K1": 12, "K2": 12, "K3": 12} or any(slice_counts().values()):
             raise AssertionError(f"{tag}: expected 12 launches of each kernel on the short K3 and the strip "
                                  f"K2, got {n}, of them {slice_counts()}")
+        if poly_expansion.launches != 4:
+            raise AssertionError(f"{tag}: expected 4 launches of the expansion (one a pyramid level), got "
+                                 f"{poly_expansion.launches}")
+        pe_launches = poly_expansion.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -997,7 +1085,7 @@ def run_main_path() -> dict:
         kernels = time_on_main_path_inputs(calls, tag)
         lap(f"{tag} kernels on the recorded inputs")
         out[tag] = {
-            "mos": mos, "launches": n, "warm_ms_median": statistics.median(times),
+            "mos": mos, "launches": n, "pe_launches": pe_launches, "warm_ms_median": statistics.median(times),
             "warm_ms": times, "max_memory_allocated": peak, "kernels": kernels, "vec": vec,
         }
         if tag == "bf16":
@@ -1251,6 +1339,10 @@ def run_serving() -> tuple[dict, list]:
         n_chunks = -(-len(nbuf_hi) // chunk_hi)
         r["chunked_launches"] = check_counts(
             f"{tag} 1080p chunked", {"K1": 12 * n_chunks, "K2": 12 * n_chunks, "K3": 12 * (1 + n_chunks)})
+        print(f"  {tag} 1080p chunked: expansion launches {poly_expansion.launches} (expected {4 * n_chunks})")
+        if poly_expansion.launches != 4 * n_chunks:
+            raise AssertionError(f"{tag} 1080p chunked: expected {4 * n_chunks} expansion launches (4 levels a "
+                                 f"chunk), got {poly_expansion.launches}")
         reset_counts()
         with no_sync():
             vec_whole = fx.video_features_batch_i420([fbuf_hi], [nbuf_hi], H_HI, W_HI, chunk=0)
@@ -2305,9 +2397,13 @@ def mesh_one_rank(streamed540: list) -> tuple[dict, dict]:
             clips, lambda c: ("i420", *decode_video_inputs_i420(c, 4.0, W, H)))
     n = len(clips)
     out["launches"] = check_counts("(a) ShardedVideoEvaluator.run, 4 clips", {k: 12 * n for k in ("K1", "K2", "K3")})
-    out["guarded"] = {"launches": guard.launches, "inside_device_guard": guard.guarded}
-    print(f"  (a) kernel library calls {guard.launches}, inside the device guard {guard.guarded}")
-    if guard.launches != sum(out["launches"].values()) or guard.guarded != guard.launches:
+    out["guarded"] = {"launches": guard.launches, "inside_device_guard": guard.guarded,
+                      "expansion_launches": poly_expansion.launches}
+    print(f"  (a) kernel library calls {guard.launches} (K1-K3 and {poly_expansion.launches} of the expansion), "
+          f"inside the device guard {guard.guarded}")
+    if poly_expansion.launches != 4 * n:
+        raise AssertionError(f"(a) expected {4 * n} expansion launches, got {poly_expansion.launches}")
+    if guard.launches != sum(out["launches"].values()) + poly_expansion.launches or guard.guarded != guard.launches:
         raise AssertionError(f"(a) launches outside the device guard: {out['guarded']}")
     same = [bool(np.array_equal(r, v)) for r, v in zip(rows, streamed540, strict=True)]
     out["rows_equal_phase6_streamed"] = same
@@ -2755,6 +2851,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     stress = check_flow_kernels(gen)
     lap3("K1 and K2 stress shapes")
+    stress["PE"] = check_poly_expansion(gen)
+    lap3("expansion stress shapes")
     stress |= check_attention_kernel(gen)
     torch.cuda.synchronize()
     lap3("K3 stress shapes")
@@ -2804,7 +2902,9 @@ def main() -> int:
 
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
-               "K3": ("mha", "relaxtpu_torch/csrc/attention.cu", "relaxtpu/ops/attention.py:34")}
+               "K3": ("mha", "relaxtpu_torch/csrc/attention.cu", "relaxtpu/ops/attention.py:34"),
+               "PE": ("poly_expansion", "relaxtpu_torch/csrc/polyexp.cu",
+                      "no Pallas kernel (relaxtpu/ops/flow.py::_poly_expansion is left to XLA)")}
     kernels = []
     rows = [(key, "bf16") for key in sources] + [("K3", "f32")]
     for key, tag in rows:
@@ -2815,7 +2915,8 @@ def main() -> int:
                   for shape, v in serving[tag]["kernels"].items()}
         kernels.append({
             "name": f"{key} {name}" + (" (f32)" if tag == "f32" else ""), "route": "cuda",
-            "source": src, "replaces": rep, "launches": main_res[tag]["launches"][key],
+            "source": src, "replaces": rep,
+            "launches": main_res[tag]["pe_launches"] if key == "PE" else main_res[tag]["launches"][key],
             "max_abs_err": max([r["err"], stress[key if key != "K3" else f"K3_{tag}"]]
                                + [v[key]["err"] for v in serving[tag]["kernels"].values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

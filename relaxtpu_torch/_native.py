@@ -26,7 +26,7 @@ import threading
 import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_SOURCES = ("warp.cu", "boxsolve.cu", "attention.cu")
+_SOURCES = ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_ROOT, "build", "relaxtpu_torch")
 NVCC_FLAGS = (
@@ -48,12 +48,14 @@ _SIGNATURES = {
     "relax_mha_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_f32_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_bf16_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
+    "relax_poly_expansion": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
 }
 
 # queries: (argtypes) -> int
 _QUERIES = {
     "relax_box_blur_solve_generic_slots": (_I,),
     "relax_box_blur_solve_wide_slots": (_I,),
+    "relax_poly_expansion_slots": (_I,),
 }
 
 _lock = threading.Lock()
