@@ -4,10 +4,9 @@ I420, as a decoder hands them over.
 A traffic file gives the geometry (width, height, frame rate, clip seconds), the
 pool's size, the loop (clients and videos in flight), and the content: a
 blurred random texture panned smoothly (a few px a frame) plus per-frame
-noise.  Frames are sampled as the ReLaX-VQA reference samples a file: every
-``frame_interval_for(framerate)``-th frame, each with its successor as the
-second frame of a pair.  Every seed gives the same sizes and counts; only
-the content differs.
+noise.  Which frames of a clip are made, and how they are grouped, is the
+model family's sampler's (``families/<name>.py``: ``sample``).  Every seed
+gives the same sizes and counts; only the content differs.
 """
 
 from __future__ import annotations
@@ -22,23 +21,14 @@ import torch.nn.functional as F
 from .weights import sub_seed
 
 
-def frame_interval_for(framerate: float) -> int:
-    """The reference's sampling interval: half the frame rate, rounded down."""
-    return math.ceil(framerate / 2) if framerate < 2 else int(framerate / 2)
-
-
-def sampled_frames(traffic: dict) -> tuple[list[int], list[int]]:
-    """Raw indices of the sampled frames and of the pairs' second frames."""
-    n = int(round(traffic["framerate"] * traffic["clip_seconds"]))
-    step = max(frame_interval_for(traffic["framerate"]), 1)
-    firsts = list(range(0, n, step))
-    return firsts, [f + 1 for f in firsts if f + 1 < n]
+def n_frames(traffic: dict) -> int:
+    """The raw frames of one clip."""
+    return int(round(traffic["framerate"] * traffic["clip_seconds"]))
 
 
 @dataclasses.dataclass
 class Clip:
-    frames: np.ndarray  # (F, H*W*3/2) uint8 packed I420
-    nexts: np.ndarray   # (P, H*W*3/2)
+    groups: dict  # the sampler's group name -> (n, H*W*3/2) uint8 packed I420 of its frames
     h: int
     w: int
 
@@ -88,14 +78,15 @@ def synthetic_bgr(ts: list[int], traffic: dict, seed: int, device) -> torch.Tens
     return out
 
 
-def pool(traffic: dict, seed: int, device) -> list[Clip]:
-    """``traffic["pool"]`` clips from ``seed``, made on ``device`` and held on the host."""
-    firsts, seconds = sampled_frames(traffic)
-    ts = sorted(set(firsts) | set(seconds))
+def pool(traffic: dict, groups: dict, seed: int, device) -> list[Clip]:
+    """``traffic["pool"]`` clips from ``seed``, made on ``device`` and held on
+    the host: of each, the frames at the raw indices of ``groups`` ({name:
+    [index]}, the family's ``sample(traffic)``), grouped so."""
+    ts = sorted(set().union(*groups.values()))
     pos = {t: i for i, t in enumerate(ts)}
     out = []
     for c in range(traffic["pool"]):
         i420 = bgr_to_i420(synthetic_bgr(ts, traffic, sub_seed(seed, "clips", c), device))
-        out.append(Clip(i420[[pos[t] for t in firsts]], i420[[pos[t] for t in seconds]],
+        out.append(Clip({g: i420[[pos[t] for t in idx]] for g, idx in groups.items()},
                         traffic["height"], traffic["width"]))
     return out

@@ -3,8 +3,11 @@
 - lower: the program's answers over one pass of the cell's pool, through
   the window's own loop, against the plain reference;
 - upper: the control, the reference computed in the precision below the
-  one the configuration states (``control_precision``: TF32 for strict f32,
-  float8 for bf16), put in the program's place and held to the same numbers.
+  one the configuration states (``control_precision``), put in the
+  program's place and held to the same numbers.
+
+The program, the references and the numbers are the configuration's
+family's (``families/<name>.py``).
 
     python3 portbench/control.py --workload <cell> --seeds 11 12 13 [--out file.jsonl]
 
@@ -22,7 +25,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from portbench import check, clips, harness, spec  # noqa: E402
-from portbench.reference import to_served  # noqa: E402
 
 
 def readings(cell: spec.Cell, seed: int, device: str = "cuda") -> dict:
@@ -31,28 +33,25 @@ def readings(cell: spec.Cell, seed: int, device: str = "cuda") -> dict:
     import torch
 
     t = time.perf_counter()
-    fx, pred, states = harness.build_program(cell, seed, device)
-    pool = clips.pool(cell.traffic, seed, device)
-    answers = harness.Loop(fx, pred, pool, cell.traffic["in_flight"]).run(videos=len(pool))
-    del fx, pred
+    family = cell.family
+    program, states = family.build(cell, seed, device)
+    pool = clips.pool(cell.traffic, family.sample(cell.traffic), seed, device)
+    answers = harness.Loop(program, pool, cell.traffic["in_flight"]).run(videos=len(pool))
+    del program
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    refs = harness.reference_answers(cell, states, pool, device)
-    ctrl = harness.reference_answers(cell, states, pool, device, cell.config["control_precision"])
-    vt = cell.traffic["video_type"]
-    ctrl_answers = [(c, v, to_served(f(v), vt)) for c, (v, _, f) in ctrl.items()]
-    lower = check.worst(((a.clip, a.vec, a.mos) for a in answers), refs, vt)
-    upper = check.worst(ctrl_answers, refs, vt)
-    per_clip = {a.clip: check.gaps(a.vec, a.mos, refs[a.clip], vt) for a in answers}
-    per_clip_ctrl = {c: check.gaps(v, m, refs[c], vt) for c, v, m in ctrl_answers}
-    rms = {k: float(sum((refs[c][0][sl].astype("float64") ** 2).mean() ** 0.5 for c in refs) / len(refs))
-           for k, sl in check.PARTS.items()}
-    swaps = [len(refs[c][1]) for c in sorted(refs)]
-    return {"cell": cell.name, "seed": seed, "lower": lower, "control": upper,
-            "pred100": [refs[c][2](refs[c][0]) for c in sorted(refs)], "ref_rms": rms, "pairs_with_swaps": swaps,
-            "per_clip": {k: [per_clip[c][k] for c in sorted(per_clip)] for k in check.NUMBERS},
-            "per_clip_control": {k: [per_clip_ctrl[c][k] for c in sorted(per_clip_ctrl)] for k in check.NUMBERS},
+    refs = family.references(cell, states, pool, device)
+    ctrl = family.references(cell, states, pool, device, cell.config["control_precision"])
+    ctrl_answers = [(c, *family.served(cell, r)) for c, r in ctrl.items()]
+    lower = check.worst(cell, ((a.clip, a.vec, a.mos) for a in answers), refs)
+    upper = check.worst(cell, ctrl_answers, refs)
+    per_clip = {a.clip: family.gaps(cell, a.vec, a.mos, refs[a.clip]) for a in answers}
+    per_clip_ctrl = {c: family.gaps(cell, v, m, refs[c]) for c, v, m in ctrl_answers}
+    names = cell.config["limits"]
+    return {"cell": cell.name, "seed": seed, "lower": lower, "control": upper, **family.notes(cell, refs),
+            "per_clip": {k: [per_clip[c][k] for c in sorted(per_clip)] for k in names},
+            "per_clip_control": {k: [per_clip_ctrl[c][k] for c in sorted(per_clip_ctrl)] for k in names},
             "seconds": time.perf_counter() - t}
 
 

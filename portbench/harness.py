@@ -2,22 +2,23 @@
 
     python portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
+Everything that knows the model is the configuration's family's
+(``families/<name>.py``, ``spec.family_module``); this file knows none.
 Set-up (counted in ``setup_s``, from the process's start): imports, CUDA,
-the program's kernel library (built once a checkout under
-``build/relaxtpu_torch/``), seeded weights on the card, the clip pool on
-the host, the program's extractor and predictor, and a warm-up through the
-window's own loop on the pool's first clips.  The window drives the
-program's public entry: ``FeatureExtractor.video_feature_async_i420`` with
-each clip's host I420 buffers, then ``VideoQualityPredictor.predict_feature``
-on the fetched vector, closed-loop, with ``in_flight`` videos enqueued
-ahead (0: one client that waits for each score).  Enqueuing stops at the
+the family's program (``build``: kernels, seeded weights on the card), the
+clip pool on the host (the frames of each clip that the family's ``sample``
+names), and a warm-up through the window's own loop on the pool's first
+clips.  The window drives the program closed-loop: its ``enqueue`` of each
+clip's host buffers, then its ``finish`` of the handle into the host vector
+and the score, with ``in_flight`` videos enqueued ahead (0: one client that
+waits for each score).  Enqueuing stops at the
 deadline; the window closes when the last video enqueued is scored.
 
 After the window: the peak device memory is read, the program is freed,
-and the plain reference scores every clip of the pool; every answer of the
-window is held against its clip's reference (``check``).  The numbers
-compared and their limits are printed last on standard error and last in
-the result line.
+and the family's plain reference answers every clip of the pool; every
+answer of the window is held against its clip's reference (``check``).  The
+numbers compared and their limits are printed last on standard error and
+last in the result line.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import os
 import sys
 import time
 
-from . import check, clips, counts, spec
+from . import check, clips, spec
 
 BANNED = ("jax", "jaxlib", "flax", "relaxtpu")  # top-level module names, compared whole
 CACHE_VARS = ("TRITON_CACHE_DIR", "TORCH_EXTENSIONS_DIR", "CUDA_CACHE_PATH")
@@ -73,7 +74,7 @@ class Answer:
     t_enqueued: float
     t_done: float
     vec: object
-    mos: float
+    mos: float  # the score
 
 
 @dataclasses.dataclass
@@ -115,8 +116,8 @@ class Context:
 class Loop:
     """The closed loop over the pool: enqueue, keep ``in_flight`` ahead, fetch and score."""
 
-    def __init__(self, extractor, predictor, pool: list, in_flight: int):
-        self.fx, self.pred, self.pool, self.in_flight = extractor, predictor, pool, in_flight
+    def __init__(self, program, pool: list, in_flight: int):
+        self.program, self.pool, self.in_flight = program, pool, in_flight
         self.next_index = 0
 
     def _enqueue(self, ranged):
@@ -127,23 +128,21 @@ class Loop:
         t0 = time.perf_counter()
         try:
             with ranged("portbench.enqueue"):
-                vec = self.fx.video_feature_async_i420(clip.frames, clip.nexts, clip.h, clip.w)
+                handle = self.program.enqueue(clip)
         except Exception as e:  # a failed request is counted, and the loop goes on
             log(f"portbench: request {i} failed at the enqueue: {e!r}")
-            vec = None
-        return i, c, t0, time.perf_counter(), vec
+            handle = None
+        return i, c, t0, time.perf_counter(), handle
 
     def _finish(self, item, ranged) -> Answer:
-        i, c, t0, t1, vec = item
+        i, c, t0, t1, handle = item
         host, mos = None, math.nan
-        if vec is not None:
+        if handle is not None:
             try:
                 with ranged("portbench.fetch"):
-                    host = vec.cpu().numpy()
-                    mos = self.pred.predict_feature(host)
+                    host, mos = self.program.finish(handle)
             except Exception as e:
                 log(f"portbench: request {i} failed at the fetch: {e!r}")
-                host = None
         return Answer(i, c, t0, t1, time.perf_counter(), host, mos)
 
     def run(self, deadline: float | None = None, videos: int | None = None, stretch=None) -> list:
@@ -172,12 +171,13 @@ class Loop:
 
 class Stretch:
     """The profiled stretch: begun at the first video boundary at or after
-    ``after`` (host clock), ended ``videos`` finished videos later, in memory."""
+    ``after`` (host clock), ended ``videos`` finished videos later, in memory;
+    ``launch_counts`` (the family's) is read at both ends."""
 
-    def __init__(self, after: float, videos: int):
+    def __init__(self, after: float, videos: int, launch_counts):
         from . import trace
 
-        self.trace_mod, self.after, self.videos = trace, after, videos
+        self.trace_mod, self.after, self.videos, self.launch_counts = trace, after, videos, launch_counts
         self.prof = self.range = None
         self.begun_at = None  # finished videos when begun
         self.t_begin = self.t_end = None  # host clock
@@ -191,7 +191,7 @@ class Stretch:
 
     def at_boundary(self, finished: int) -> None:
         if self.state == "waiting" and time.perf_counter() >= self.after:
-            self.launches = launch_counts()
+            self.launches = self.launch_counts()
             self.prof = self.trace_mod.profiler()
             self.prof.start()
             self.range = self.ranged("portbench.stretch")
@@ -201,58 +201,13 @@ class Stretch:
             self.t_end = time.perf_counter()
             self.range.__exit__(None, None, None)
             self.prof.stop()
-            after = launch_counts()
+            after = self.launch_counts()
             self.launches = {k: after[k] - self.launches[k] for k in after}
             self.state = "closed"
 
 
-def launch_counts() -> dict:
-    """The program's launch counters of the three kernels."""
-    from relaxtpu_torch.ops.attention import mha
-    from relaxtpu_torch.ops.boxsolve import box_blur_solve
-    from relaxtpu_torch.ops.warp import update_matrices
-
-    return {"k1": update_matrices.launches, "k2": box_blur_solve.launches, "k3": mha.launches}
-
-
 def _number(v: float) -> float:
     return v if math.isfinite(v) else 1.0e308
-
-
-def build_program(cell: spec.Cell, seed: int, device):
-    """Seeded weights on the card -> the program's extractor and predictor,
-    and the state dicts and scaler that the reference gets too."""
-    import numpy as np
-    import torch
-
-    from relaxtpu_torch.features.pipeline import FeatureExtractor
-    from relaxtpu_torch.model.scalers import FeatureScaler
-    from relaxtpu_torch.predict import VideoQualityPredictor
-
-    from . import weights
-
-    cfg, seeded = cell.config, cell.config["seeded"]
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[cfg["backbone_dtype"]]
-    depth = cfg["vit"]["depth"]
-    rn, vit = weights.backbones(seed, depth, dtype, device)
-    head = weights.head(seed, cfg["head"]["in_features"], device, seeded["head_pred_bias"], seeded["head_pred_gain"])
-    base = np.ones(cfg["head"]["in_features"])
-    for part, sl in check.PARTS.items():
-        base[sl] = 1.0 / seeded["scaler_part_rms"][part]
-    scaler = weights.scaler(seed, base, seeded["scaler_log_scale_std"], seeded["scaler_offset_std"])
-    fx = FeatureExtractor(rn, vit, dtype=dtype, vit_depth=depth, device=device)
-    pred = VideoQualityPredictor(fx, head, FeatureScaler(**scaler), video_type=cell.traffic["video_type"])
-    return fx, pred, (rn, vit, head, scaler)
-
-
-def reference_answers(cell: spec.Cell, states, pool: list, device, precision: str = "f32") -> dict:
-    """clip index -> the plain reference's (vector, swaps, prediction function)."""
-    from .reference import Reference
-
-    rn, vit, head, scaler = states
-    ref = Reference(rn, vit, head, scaler, cell.config["vit"]["depth"], cell.traffic["video_type"], device, precision,
-                    cell.config["swap_slack"])
-    return {i: (*ref.answer(clip.frames, clip.nexts, clip.h, clip.w), ref.pred100) for i, clip in enumerate(pool)}
 
 
 def run(args, t_start: float, device: str = "cuda", cell: spec.Cell | None = None) -> dict:
@@ -264,13 +219,9 @@ def run(args, t_start: float, device: str = "cuda", cell: spec.Cell | None = Non
     if device == "cuda":
         require_cards(cell.chips)
     pin_caches(spec.ROOT)
-    cfg, traffic = cell.config, cell.traffic
-    if device == "cuda":
-        from relaxtpu_torch import _native
-
-        _native.lib()
-    fx, pred, states = build_program(cell, args.seed, device)
-    pool = clips.pool(traffic, args.seed, device)
+    cfg, traffic, family = cell.config, cell.traffic, cell.family
+    program, states = family.build(cell, args.seed, device)
+    pool = clips.pool(traffic, family.sample(traffic), args.seed, device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     instruments = stretch = None
     if args.trace:
@@ -278,8 +229,8 @@ def run(args, t_start: float, device: str = "cuda", cell: spec.Cell | None = Non
 
         if device == "cuda":
             log(f"portbench: profiler warm-up {trace.warm_profiler():.3f} s")
-        instruments = trace.Instruments(fx, {m["name"]: spec.metric_module(m["name"]) for m in cell.per_layer})
-    loop = Loop(fx, pred, pool, traffic["in_flight"])
+        instruments = trace.Instruments(program, {m["name"]: spec.metric_module(m["name"]) for m in cell.per_layer})
+    loop = Loop(program, pool, traffic["in_flight"])
     loop.run(videos=traffic["warmup_videos"])
     sync()
     if device == "cuda":
@@ -290,7 +241,7 @@ def run(args, t_start: float, device: str = "cuda", cell: spec.Cell | None = Non
 
     t0 = time.perf_counter()
     if args.trace:
-        stretch = Stretch(t0 + traffic["trace_after"] * args.seconds, traffic["trace_videos"])
+        stretch = Stretch(t0 + traffic["trace_after"] * args.seconds, traffic["trace_videos"], family.launch_counts)
     answers = loop.run(deadline=t0 + args.seconds, stretch=stretch)
     window_s = time.perf_counter() - t0
     sync()
@@ -302,8 +253,7 @@ def run(args, t_start: float, device: str = "cuda", cell: spec.Cell | None = Non
                    "count": cell.chips,
                    "memory_peak_bytes": int(torch.cuda.max_memory_allocated()) if device == "cuda" else 0}
     ctx = Context(cfg, traffic, setup_s, window_s, answers,
-                  video_flops=counts.video_flops(len(pool[0].frames), len(pool[0].nexts), cfg["vit"]["depth"]),
-                  peak_flops=counts.PEAK_FLOPS[cfg["backbone_dtype"]])
+                  video_flops=family.video_flops(cell, pool[0]), peak_flops=family.peak_flops(cell))
     breakdown = None
     if stretch is not None:
         if stretch.state != "closed":
@@ -333,17 +283,17 @@ def run(args, t_start: float, device: str = "cuda", cell: spec.Cell | None = Non
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
     # the check: the program freed, the reference on the card
-    del fx, pred, loop, instruments
+    del program, loop, instruments
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    refs = reference_answers(cell, states, pool, device)
+    refs = family.references(cell, states, pool, device)
     log(f"portbench: reference over {len(pool)} clips {time.perf_counter() - t:.3f} s; "
         f"{len(answers)} answers compared")
     failed = sum(a.vec is None for a in answers)
-    ok, table = check.judge(check.worst(((a.clip, a.vec, a.mos) for a in answers if a.vec is not None), refs,
-                                        traffic["video_type"]), cfg["limits"])
+    ok, table = check.judge(check.worst(cell, ((a.clip, a.vec, a.mos) for a in answers if a.vec is not None), refs),
+                            cfg["limits"])
     result = {"correct": bool(ok and answers and not failed), "attempted": len(answers), "failed": failed,
               "metrics": metrics, "device": device_info}
     if breakdown is not None:

@@ -51,3 +51,19 @@ def test_failed_request_is_counted(monkeypatch):
     monkeypatch.setattr(FeatureExtractor, "video_feature_async_i420", broken)
     res = tiny_run(cell, seconds=0.2)
     assert res["failed"] == res["attempted"] >= 1 and res["correct"] is False
+
+
+@pytest.mark.parametrize("limits", ["misnamed", "missing", "extra"])
+def test_limits_that_the_numbers_do_not_match_raise(limits):
+    cell = tiny_cell()
+    named = dict(cell.config["limits"])
+    first = next(iter(named))
+    if limits == "misnamed":
+        named["x_" + first] = named.pop(first)
+    elif limits == "missing":
+        named.pop(first)
+    else:
+        named["unread"] = 1.0
+    cell.config["limits"] = named
+    with pytest.raises(ValueError, match="has limits for"):
+        tiny_run(cell, seconds=0.3)

@@ -28,9 +28,9 @@ from portbench.tests.helpers import tiny_cell
 cell = tiny_cell()
 rn, vit = weights.backbones(1, 2, torch.float32, "cpu")
 head = weights.head(1, 35203, "cpu", 50.0, 10.0)
-pool = clips.pool(cell.traffic, 1, "cpu")
+pool = clips.pool(cell.traffic, cell.family.sample(cell.traffic), 1, "cpu")
 ref = Reference(rn, vit, head, weights.scaler(1, np.ones(35203), 0.5, 0.1), 2, "konvid_1k", "cpu")
-v, swaps = ref.answer(pool[0].frames, pool[0].nexts, 64, 64)
+v, swaps = ref.answer(pool[0].groups["frames"], pool[0].groups["nexts"], 64, 64)
 print(json.dumps([bool(np.isfinite(v).all()), ref.pred100(v), sorted({{m.split(".")[0] for m in sys.modules}})]))
 """
 

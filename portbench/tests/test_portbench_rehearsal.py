@@ -8,14 +8,15 @@ import math
 import numpy as np
 import pytest
 
-from portbench import clips, harness
+from portbench import clips, harness, spec
 
 from .helpers import tiny_cell, tiny_run
 
 DEVICE_KEYS = {"platform", "kind", "count", "memory_peak_bytes"}
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 
 
-@pytest.mark.parametrize("name", ["f32-konvid540-stream", "bf16-konvid540-single"])
+@pytest.mark.parametrize("name", CELLS)
 def test_result_line(name):
     cell = tiny_cell(name)
     res = tiny_run(cell)
@@ -45,10 +46,12 @@ def test_traced_run(in_flight):
 
 def test_chunked_path_and_same_sizes_for_every_seed():
     cell = tiny_cell("bf16-qualcomm1080-stream", clip_seconds=10)  # 20 pairs: more than the 16 a flow call takes
-    a, b = (clips.pool(cell.traffic, s, "cpu") for s in (5, 2**31 + 7))
-    assert [c.frames.shape for c in a] == [c.frames.shape for c in b] == [(20, 64 * 64 * 3 // 2)] * 2
-    assert not np.array_equal(a[0].frames, b[0].frames)
-    assert np.array_equal(a[0].nexts, clips.pool(cell.traffic, 5, "cpu")[0].nexts)
+    groups = cell.family.sample(cell.traffic)
+    a, b = (clips.pool(cell.traffic, groups, s, "cpu") for s in (5, 2**31 + 7))
+    frames = [c.groups["frames"].shape for c in a]
+    assert frames == [c.groups["frames"].shape for c in b] == [(20, 64 * 64 * 3 // 2)] * 2
+    assert not np.array_equal(a[0].groups["frames"], b[0].groups["frames"])
+    assert np.array_equal(a[0].groups["nexts"], clips.pool(cell.traffic, groups, 5, "cpu")[0].groups["nexts"])
     res = tiny_run(cell, seconds=0.5)
     assert res["correct"] is True
 

@@ -1,12 +1,11 @@
 """The traced run's instruments and the reduction of its device trace.
 
 ``--trace 1`` installs named host ranges around calls into the program's
-layers (all ``portbench.*``; the program itself has none): the enqueue and
-the fetch of each video, and, as the cell's per-layer metrics declare them
-(``Instruments``), numbered ranges around the flow (``farneback_flow`` as
-the pipeline calls it), each backbone's forward (hooks on the extractor's
-networks) and each call of the three kernels' wrappers, so that every kernel
-record the profiler keeps is paired with the work of its own call.  The
+layers (all ``portbench.*``): the enqueue and the fetch of each video, and,
+as the cell's per-layer metrics declare them (``Instruments``), numbered
+ranges around calls of the program's functions (a flow, a kernel's wrapper)
+and the forwards of its networks (hooks), so that every kernel record the
+profiler keeps is paired with the work of its own call.  The
 profiler runs over a stretch of whole videos inside the window, in memory.
 
 The reduction reads the profiler's raw events once: device operations
@@ -152,10 +151,10 @@ class Instruments:
     attribute)``, a function of the program as its caller looks it up, whose
     every call runs inside a range ``portbench.<metric>.<n>``, and
     ``bound_s(*args, **kwargs)``, the least seconds of that call; or ``HOOKS``,
-    attributes of the extractor (networks) whose every forward runs inside
-    such a range."""
+    attributes of the program (networks, ``families/<name>.py``) whose every
+    forward runs inside such a range."""
 
-    def __init__(self, extractor, metrics: dict):
+    def __init__(self, program, metrics: dict):
         import importlib
 
         self.calls = {}  # metric -> the bound (s, or None) of each call, by call number
@@ -167,7 +166,7 @@ class Instruments:
                 self._saved.append((target, mod.CALLS[1], fn))
                 setattr(target, mod.CALLS[1], self._ranged(name, fn, getattr(mod, "bound_s", None)))
             for attr in getattr(mod, "HOOKS", ()):
-                net = getattr(extractor, attr)
+                net = getattr(program, attr)
                 self._hooks.append(net.register_forward_pre_hook(self._enter(name)))
                 self._hooks.append(net.register_forward_hook(self._exit(name)))
 
