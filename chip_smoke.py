@@ -210,11 +210,28 @@ Phases (any failed check raises, so the exit code is not 0):
    (d) where PIL imports, ``parity --check all`` with no blobs: ``ran`` 2
        (features and production), ``ok``, head and demo skipped with
        their missing flags named;
-12. print the seconds of each phase (phases 3 and 5-11 also by step), the
+12. K4 (``ops/window_attention.py``, FAST-VQA's windowed attention): against
+   ``window_mha_plain`` in f32 on the same bf16 qkv at FAST-VQA's four stage
+   geometries (4 views; grids 16x56x56 to 16x7x7, 3-24 heads, the gate on
+   stages 1-3), unshifted and shifted, and at edge windows (49, 30, 98 and
+   512 tokens, several windows an axis, shifts on every axis), each input
+   NaN-padded, within ``TOL["K4"]`` of max |plain| and one launch a call;
+   each stage's call by events and device time beside its bound, and the 12
+   calls of a view batch; then FAST-VQA's program on a seeded 540p video
+   (4 views of 32 frames): the host crop routine bit-identical to numpy's
+   (both timed), the mosaic bit-identical to the reference's whole-frame
+   conversion and crop, the CUDA-graph program's answer against the eager
+   one's, two enqueues under ``set_sync_debug_mode("error")`` (the second
+   launches the first video: 12 K4 launches), warm ms a video and peak
+   memory, and the bf16
+   answer and the fp8 control against the f32 reference (the benchmark's
+   numbers ``head_map``, ``feat``, ``score``);
+13. print the seconds of each phase (phases 3 and 5-12 also by step), the
    ``kernels`` JSON line, the card line and the final status line.
 
-Exits with 1 and prints no result when CUDA is not available.  Details go
-to ``build/chip_smoke/chip_smoke.json``.
+``python3 chip_smoke.py k4`` runs phases 1, 2 and 12 alone.  Exits with 1
+and prints no result when CUDA is not available.  Details go to
+``build/chip_smoke/chip_smoke.json`` (``chip_smoke_k4.json`` for ``k4``).
 """
 
 from __future__ import annotations
@@ -262,7 +279,12 @@ from relaxtpu_torch.models.vgg import VGG16
 from relaxtpu_torch.models.vit import ViT
 from relaxtpu_torch.model.mlp import Mlp, flax_init_
 from relaxtpu_torch.models.porters import mlp_from_jax
+from relaxtpu_torch import reference_fastvqa
+from relaxtpu_torch.features import fastvqa as fastvqa_mod
+from relaxtpu_torch.features.fastvqa import FastVQAExtractor
+from relaxtpu_torch.models.swin3d import random_state
 from relaxtpu_torch.ops import attention as attention_mod
+from relaxtpu_torch.ops import window_attention
 from relaxtpu_torch.ops.attention import mha, mha_plain
 from relaxtpu_torch.ops import boxsolve as boxsolve_mod
 from relaxtpu_torch.ops.boxsolve import GENERIC_WINSIZE, STRIP_WINSIZE, box_blur_solve, box_blur_solve_plain
@@ -464,7 +486,7 @@ def report_build(so: str) -> dict:
     generic-radius K2 kernel, the wide-window K2's two passes or the
     polynomial expansion kernel spill."""
     funcs = {}
-    for src in ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu"):
+    for src in ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu", "window_attention.cu"):
         name = None
         for line in open(os.path.join(_native.BUILD_DIR, src + ".log")):
             if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -485,17 +507,17 @@ def report_build(so: str) -> dict:
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
         kernel = re.search(r"(update_matrices|box_blur_solve|box_ring_solve|box_vsum|box_hsum_solve|mha_bf16(_long|_ring)?"
-                           r"|mha_f32(_long|_online)?|poly_expansion)_kernel", name)
+                           r"|mha_f32(_long|_online)?|poly_expansion|window_mha)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
-        mma = f"; {f['tensor_core_instructions']} HMMA/HGMMA" if "mha" in name else ""
+        mma = f"; {f.get('tensor_core_instructions')} HMMA/HGMMA" if "mha" in name else ""
         print(f"  {f.get('source')}: {f['kernel']}: {f.get('registers')} registers, {f.get('spill')}{mma}")
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
     if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "mha_f32_online",
                                                     "box_ring_solve", "box_vsum", "box_hsum_solve",
-                                                    "poly_expansion")):
-        raise AssertionError("the long K3, the generic-radius or wide-window K2 or the expansion functions are "
-                             "missing from the build")
+                                                    "poly_expansion", "window_mha")):
+        raise AssertionError("the long K3, the generic-radius or wide-window K2, the expansion or K4 functions "
+                             "are missing from the build")
     for kernel in ("mha_bf16_ring", "mha_f32_online", "box_ring_solve", "box_vsum", "box_hsum_solve",
                    "poly_expansion"):
         fs = {n: f for n, f in funcs.items() if kernel in n}
@@ -2829,6 +2851,188 @@ def run_tools() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 12
+K4_WINDOW, K4_SHIFT, K4_VIEWS = (8, 7, 7), (4, 3, 3), 4
+# FAST-VQA's stages at 4 views of 32x224x224: token grid, heads, mini-patch side in tokens (0: no gate)
+K4_STAGES = (((16, 56, 56), 3, 8), ((16, 28, 28), 6, 4), ((16, 14, 14), 12, 2), ((16, 7, 7), 24, 0))
+K4_BLOCKS = (2, 2, 6, 2)  # blocks a stage, half of them shifted
+# edges: windows that are not multiples of 16 tokens, one of 512 (K4's largest), several windows an axis
+K4_EDGES = (((2, 14, 14), (2, 7, 7), 2, 4), ((4, 14, 21), (1, 7, 7), 2, 7), ((4, 6, 10), (2, 3, 5), 3, 1),
+            ((8, 8, 16), (8, 8, 8), 1, 2), ((2, 7, 7), (2, 7, 7), 2, 0))
+# |K4 - plain in f32| / max |plain|: K4 rounds P to bf16 before P V and its output to bf16 (2^-9
+# relative each), and its exponential is ex2.approx (2 ulp); a bf16 rounding of the f32 plain output
+# alone reads ~4e-3, so 1e-2 leaves room for the P rounding and nothing for a wrong index, gate or mask
+# (each moves outputs by the size of a bias table entry, ~1)
+TOL["K4"] = 1e-2
+
+
+def k4_bound(views: int, grid, heads: int, window=K4_WINDOW) -> tuple[float, str]:
+    """q, k, v read and o written once (bf16) at the memory rate, or QK^T
+    and P V (4 B H N^2 D over the windows) at the bf16 peak."""
+    n, tokens = math.prod(window), views * math.prod(grid)
+    return bound(4 * tokens * heads * 32 * 2, 4.0 * tokens * heads * n * 32, torch.bfloat16)
+
+
+def k4_inputs(gen: torch.Generator, views: int, grid, heads: int, gated: bool) -> tuple:
+    qkv = nan_padded(torch.randn((views, math.prod(grid), 3 * heads * 32), generator=gen, device="cuda")
+                     .to(torch.bfloat16))
+    rows = window_attention.table_rows(K4_WINDOW)
+    return qkv, [torch.randn((rows, heads), generator=gen, device="cuda") for _ in range(1 + gated)]
+
+
+def check_window_attention(gen: torch.Generator) -> dict:
+    """K4 against its plain version in f32 (``window_mha_plain`` on the same
+    bf16 qkv) at FAST-VQA's four stage geometries (4 views), unshifted and
+    shifted, and at the edges of ``K4_EDGES``, each input at the start of a
+    NaN-filled allocation; each call launches K4 once."""
+    worst, floor = 0.0, 0.0
+    cases = []
+    for grid, heads, patch in K4_STAGES:
+        for shift in ((0, 0, 0), K4_SHIFT):
+            window, sh = window_attention.effective_window(grid, K4_WINDOW, shift)
+            cases.append((K4_VIEWS, grid, window, sh, heads, patch))
+    for grid, window, heads, patch in K4_EDGES:
+        for shift in ((0, 0, 0), tuple(w // 2 for w in window)):
+            cases.append((2, grid, window, shift, heads, patch))
+    for views, grid, window, shift, heads, patch in cases:
+        qkv = nan_padded(torch.randn((views, math.prod(grid), 3 * heads * 32), generator=gen, device="cuda")
+                         .to(torch.bfloat16))
+        rows = window_attention.table_rows(window)
+        tables = [torch.randn((rows, heads), generator=gen, device="cuda") for _ in range(1 + bool(patch))]
+        want = window_attention.window_mha_plain(qkv.float(), grid, window, shift, heads, tables, patch, 32**-0.5)
+        n0 = window_attention.window_mha.launches
+        got = window_attention.window_mha(qkv, grid, window, shift, heads, tables, patch, 32**-0.5)
+        err, rel = rel_err(got, want)
+        floor = max(floor, rel_err(want.to(torch.bfloat16), want)[1])
+        check(f"K4 {views} views, grid {grid}, window {window}, shift {shift}, {heads} heads, mini-patch {patch}",
+              rel, TOL["K4"], verbose=False)
+        if window_attention.window_mha.launches - n0 != 1:
+            raise AssertionError("K4 did not launch once")
+        worst = max(worst, rel)
+    print(f"  K4 at FAST-VQA's 4 stages (unshifted and shifted) and {len(K4_EDGES)} edge geometries: largest "
+          f"|K4 - plain f32| / max |plain| {worst:.3e} (the plain output rounded to bf16: {floor:.3e}; tolerance "
+          f"{TOL['K4']:.0e})")
+    return {"K4": worst, "K4_bf16_rounding": floor}
+
+
+def time_window_attention(gen: torch.Generator) -> dict:
+    """Each stage's K4 call (4 views, the shifted block) by events and by the
+    profiler's device time, beside its bound and the plain version; the sum
+    over the 12 calls of a view batch (half of each stage's blocks shifted)."""
+    out, total = {}, {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+    for (grid, heads, patch), blocks in zip(K4_STAGES, K4_BLOCKS):
+        row = {}
+        for shift in ((0, 0, 0), K4_SHIFT):
+            window, sh = window_attention.effective_window(grid, K4_WINDOW, shift)
+            qkv, tables = k4_inputs(gen, K4_VIEWS, grid, heads, bool(patch))
+            fn = lambda: window_attention.window_mha(qkv, grid, window, sh, heads, tables, patch, 32**-0.5)  # noqa: E731
+            ms, dev = cuda_ms(fn), device_ms([fn])
+            row["shifted" if any(sh) else "unshifted"] = {"ms": ms, "device_ms": dev}
+            total["ms"] += ms * blocks / 2
+            total["device_ms"] += (dev if dev is not None else ms) * blocks / 2
+        b_ms, by = k4_bound(K4_VIEWS, grid, heads)
+        row |= {"bound_ms": b_ms, "bound_by": by,
+                "plain_ms": cuda_ms(lambda: window_attention.window_mha_plain(
+                    qkv, grid, window, sh, heads, tables, patch, 32**-0.5), iters=2, warmup=1)}
+        total["bound_ms"] += b_ms * blocks
+        dev = row["shifted"]["device_ms"] or row["shifted"]["ms"]
+        print(f"  K4 stage grid {grid}, {heads} heads: unshifted {row['unshifted']['ms']:.4f} ms "
+              f"(device {row['unshifted']['device_ms']}), shifted {row['shifted']['ms']:.4f} ms (device "
+              f"{row['shifted']['device_ms']}); bound {b_ms:.4f} ms ({by}), {100 * b_ms / dev:.1f}% of it; plain "
+              f"{row['plain_ms']:.2f} ms")
+        out[str(grid)] = row
+    total["share"] = total["bound_ms"] / total["device_ms"]
+    print(f"  K4, the 12 calls of a view batch: {total['ms']:.4f} ms by events, {total['device_ms']:.4f} device ms, "
+          f"bound {total['bound_ms']:.4f} ms ({100 * total['share']:.1f}%)")
+    return out | {"view_batch": total}
+
+
+def run_window_attention() -> dict:
+    """Phase 12: K4 and FAST-VQA's program on the card."""
+    lap = Laps()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    res = {"check": check_window_attention(gen)}
+    lap("K4 checks")
+    res["timing"] = time_window_attention(gen)
+    lap("K4 timing")
+
+    # (b) the program at 540p: the host crop, the mosaic, 12 K4 launches a video, the reference
+    h, w, n = 540, 960, 192
+    idx = fastvqa_mod.clip_indices(n)
+    flat = sorted({i for c in idx for i in c})
+    i420 = bgr_to_i420(synthetic_bgr(len(flat), h, w, seed=12))
+    pos = {t: k for k, t in enumerate(flat)}
+    clips = [i420[[pos[t] for t in c]] for c in idx]
+    offsets = fastvqa_mod.draw_offsets(np.random.default_rng(12), h, w)
+    tops, lefts, _, _ = fastvqa_mod.region_plan(h, w, offsets)
+    shape = (len(clips[0]), fastvqa_mod.PATCHES, fastvqa_mod.REGION_BYTES)
+    a, b = np.empty(shape, np.uint8), np.empty(shape, np.uint8)
+    t_native, t_plain = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for k in range(len(clips)):
+            fastvqa_mod.crop_i420(clips[k], h, w, tops[k], lefts[k], a, True)
+        t_native.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for k in range(len(clips)):
+            fastvqa_mod.crop_i420(clips[k], h, w, tops[k], lefts[k], b, False)
+        t_plain.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(a, b):
+            raise AssertionError("the host crop routine differs from crop_i420_plain")
+    res["crop_host_ms"] = {"native": min(t_native), "plain": min(t_plain)}
+    print(f"  host crop of a 540p video (4 clips x 32 frames x 49 regions): library routine "
+          f"{min(t_native):.2f} ms, numpy {min(t_plain):.2f} ms (best of 3), bit-identical")
+
+    state = random_state(12)
+    fx = FastVQAExtractor(state, torch.bfloat16, "cuda")
+    ref = reference_fastvqa.Reference(state, "cuda")
+    mosaic = fx.mosaic_i420(clips, h, w, offsets)
+    want = ref.mosaic(clips, h, w, offsets)
+    if not torch.equal(mosaic, want):
+        raise AssertionError("the program's mosaic differs from the reference's whole-frame conversion and crop")
+    print("  the program's mosaic equals the reference's (whole frames converted, then cropped): bit-identical")
+    with torch.inference_mode():  # the same stages launched eagerly, the graphs' yardstick
+        eager_vec = fx._score(fx.mosaic_i420(clips, h, w, offsets))[0].cpu().numpy()
+    fx.finish(fx.enqueue_i420(clips, h, w, offsets))  # warm: captures the graphs
+    torch.cuda.synchronize()
+    n0 = window_attention.window_mha.launches
+    torch.cuda.reset_peak_memory_stats()
+    with no_sync():  # the second enqueue launches the first video's program (its regions cut meanwhile)
+        handle = fx.enqueue_i420(clips, h, w, offsets)
+        second = fx.enqueue_i420(clips, h, w, offsets)
+    launches = window_attention.window_mha.launches - n0
+    vec, score = fx.finish(handle)
+    fx.finish(second)
+    graph_gap = float(np.abs(vec - eager_vec).max() / np.abs(eager_vec).max())
+    print(f"  the CUDA-graph program against the eager one: max |difference| / max |eager| {graph_gap:.3e}")
+    if graph_gap > 1e-2:
+        raise AssertionError("the CUDA-graph program's answer differs from the eager program's")
+    if launches != 12:
+        raise AssertionError(f"K4 launched {launches} times for a video, not 12")
+    peak = torch.cuda.max_memory_allocated()
+    res["program"] = {"k4_launches": launches, "peak_bytes": peak, "graph_against_eager": graph_gap, **timed(
+        lambda: fx.finish(fx.enqueue_i420(clips, h, w, offsets)))}
+    scores_ref, feat_ref, score_ref = ref.answer(clips, h, w, offsets)
+    ref8 = reference_fastvqa.Reference(state, "cuda", "fp8")
+    readings = {}
+    for tag, (s_r, f_r, sc_r) in (("bf16 program", (vec[:scores_ref.size], vec[scores_ref.size:], score)),
+                                  ("fp8 control", ref8.answer(clips, h, w, offsets))):
+        s_r, f_r = np.asarray(s_r).reshape(scores_ref.shape), np.asarray(f_r).reshape(feat_ref.shape)
+        readings[tag] = {
+            "head_map": float(np.linalg.norm(s_r - scores_ref) / np.linalg.norm(scores_ref)),
+            "feat": max(float(np.linalg.norm(f_r[v] - feat_ref[v]) / np.linalg.norm(feat_ref[v]))
+                        for v in range(len(feat_ref))),
+            "score": abs(float(sc_r) - score_ref)}
+        print(f"  {tag} against the f32 reference: {readings[tag]}")
+    res["program"] |= {"readings": readings, "score": score, "score_ref": score_ref}
+    print(f"  FAST-VQA program at 540p (bf16, 4 views of 32x224x224): K4 {launches} launches a video; "
+          f"{res['program']['ms_median']:.2f} ms a video (enqueue and fetch); peak {peak} B; score {score:.4f} "
+          f"(reference {score_ref:.4f})")
+    lap("program")
+    lap.show("phase 12")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2845,6 +3049,18 @@ def main() -> int:
     print(f"[2] kernels built and loaded in {build_s:.1f} s")
     build_info = report_build(_native.build())
     phase("2 build")
+    if sys.argv[1:] == ["k4"]:  # phases 1, 2 and 12 alone
+        print("[12] K4 and FAST-VQA's program (540p, 4 views of 32x224x224, bf16)")
+        k4 = run_window_attention()
+        phase("12 K4")
+        print(f"[13] seconds by phase: { {k: round(v, 1) for k, v in phase.seconds.items()} }")
+        os.makedirs(WORK_DIR, exist_ok=True)
+        with open(os.path.join(WORK_DIR, "chip_smoke_k4.json"), "w") as fh:
+            json.dump({"card": card, "torch": torch.__version__, "build": build_info, "k4": k4}, fh, indent=1)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     print("[3] kernels against their plain versions (540p, 1080p and 4K shapes)")
     lap3 = Laps()
@@ -2897,7 +3113,11 @@ def main() -> int:
     print("[11] tools: visualize, production numerics, parity --check features and all, full width")
     tools = run_tools()
     phase("11 tools")
-    print(f"[12] seconds by phase: { {k: round(v, 1) for k, v in phase.seconds.items()} }, "
+
+    print("[12] K4 and FAST-VQA's program (540p, 4 views of 32x224x224, bf16)")
+    k4 = run_window_attention()
+    phase("12 K4")
+    print(f"[13] seconds by phase: { {k: round(v, 1) for k, v in phase.seconds.items()} }, "
           f"total {sum(phase.seconds.values()):.1f}")
 
     sources = {"K1": ("update_matrices", "relaxtpu_torch/csrc/warp.cu", "relaxtpu/ops/warp.py:234"),
@@ -2951,6 +3171,14 @@ def main() -> int:
             "library_ms": None, "device_ms": r["device_ms"], "library_device_ms": None,
         })
 
+    k4_total = k4["timing"]["view_batch"]
+    kernels.append({
+        "name": "K4 window_mha (bf16, FAST-VQA's 12 calls of 4 views)", "route": "cuda",
+        "source": "relaxtpu_torch/csrc/window_attention.cu", "replaces": "no Pallas kernel (added for FAST-VQA)",
+        "launches": k4["program"]["k4_launches"], "max_abs_err": k4["check"]["K4"],
+        "ms": k4_total["ms"], "plain_ms": None, "bound_ms": k4_total["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "device_ms": k4_total["device_ms"], "library_device_ms": None,
+    })
     with open(os.path.join(WORK_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "build": build_info, "kernels": kernels,
@@ -2959,7 +3187,7 @@ def main() -> int:
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
                    "long_attention": long_attn, "wide_window_flow": wide_flow, "pair_window_flow": pair_flow,
                    "main_path": main_res, "serving": serving, "training": training,
-                   "extraction": extraction, "ingest": ingest, "mesh": mesh, "tools": tools}, fh, indent=1)
+                   "extraction": extraction, "ingest": ingest, "mesh": mesh, "tools": tools, "k4": k4}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

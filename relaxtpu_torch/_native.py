@@ -10,7 +10,7 @@ has no ``nvcc``.
 Every C entry point that launches takes device pointers and the CUDA
 stream as ``void*``, launches on that stream, and returns
 ``cudaGetLastError()``; a query (``_QUERIES``) launches nothing and returns
-an int.
+an int; a host routine (``_HOST``) works on host memory alone.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import threading
 import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_SOURCES = ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu")
+_SOURCES = ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu", "window_attention.cu", "minipatch.cu")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_ROOT, "build", "relaxtpu_torch")
 NVCC_FLAGS = (
@@ -49,6 +49,7 @@ _SIGNATURES = {
     "relax_mha_f32_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_mha_bf16_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_poly_expansion": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    "relax_window_mha_bf16": (_P, _P, _P, _P, *(_I,) * 12, _F, _P),
 }
 
 # queries: (argtypes) -> int
@@ -56,6 +57,11 @@ _QUERIES = {
     "relax_box_blur_solve_generic_slots": (_I,),
     "relax_box_blur_solve_wide_slots": (_I,),
     "relax_poly_expansion_slots": (_I,),
+}
+
+# host routines, which touch no device: (argtypes) -> int (0 on success)
+_HOST = {
+    "relax_crop_i420_minipatches": (_P, _I, _I, _I, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -121,7 +127,7 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
-            for name, argtypes in (_SIGNATURES | _QUERIES).items():
+            for name, argtypes in (_SIGNATURES | _QUERIES | _HOST).items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -142,11 +148,33 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def launch_here(name: str, device: torch.device, *args) -> None:
+    """:func:`launch` for a hot path: where ``device`` is the current CUDA
+    device, call the entry on the current stream's raw handle without
+    switching devices or building a stream object (tens of microseconds a
+    call on a slow host); otherwise as :func:`launch`."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None or device.index is None or device.index != torch.cuda.current_device():
+        return launch(name, device, *args)
+    fn = _fns.get(name) or getattr(lib(), name)
+    err = fn(*args, raw(device.index))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
 def query(name: str, device: torch.device, *args) -> int:
     """A query's result, with ``device`` current."""
     fn = _fns.get(name) or getattr(lib(), name)
     with torch.cuda.device(device):
         return fn(*args)
+
+
+def host(name: str, *args) -> None:
+    """Call a host routine of the library; raise unless it returns 0."""
+    fn = _fns.get(name) or getattr(lib(), name)
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: returned {err}")
 
 
 def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

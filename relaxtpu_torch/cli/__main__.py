@@ -1,6 +1,7 @@
 """relaxtpu_torch CLI (counterpart of ``relaxtpu/cli/__main__.py``).
 
-Scoring: ``predict`` (one video), ``predict-batch`` (many videos, streamed
+Scoring: ``predict`` (one video; ``--arch fastvqa --weights <state dict>``
+scores it with FAST-VQA instead), ``predict-batch`` (many videos, streamed
 or batched, grouped by resolution), ``serve`` (JSON lines on stdin) and
 ``warmup``.  Containers (mp4, mkv, avi, webm) need the native libav
 decoder or cv2 on the host; ``--ingest`` picks BGR or I420 upload for
@@ -257,7 +258,33 @@ def _video_paths(items) -> list[str]:
     return paths
 
 
+def _build_fastvqa(args):
+    """FAST-VQA's predictor: ``--weights`` (a ``models.swin3d.FastVQA`` state
+    dict, Video Swin and FAST-VQA's names), or seeded random weights."""
+    from relaxtpu_torch.device import default_dtype, resolve_device
+    from relaxtpu_torch.features.fastvqa import FastVQAExtractor
+    from relaxtpu_torch.models.swin3d import random_state
+    from relaxtpu_torch.predict import FastVQAPredictor
+
+    device = resolve_device(args.device)
+    if args.weights:
+        state = torch.load(args.weights, map_location="cpu", weights_only=True)
+        state = state.get("state_dict", state)
+    else:
+        logging.warning("no weights given: using seeded random FAST-VQA weights")
+        state = random_state(0)
+    return FastVQAPredictor(FastVQAExtractor(state, default_dtype(device, args.bf16), device))
+
+
 def cmd_predict(args):
+    if args.arch == "fastvqa":
+        score = _build_fastvqa(args).predict_file(args.video, framerate=args.framerate, width=args.width,
+                                                  height=args.height)
+        print(json.dumps({"video": args.video, "predicted_score": score}))
+        return
+    missing = [f"--{k}" for k in ("model", "imputer", "scaler") if getattr(args, k) is None]
+    if missing:
+        raise SystemExit(f"predict --arch relaxvqa needs {', '.join(missing)}")
     predictor = _load_predictor(args, _build_extractor(args))
     mos = predictor.predict_file(args.video, framerate=args.framerate, width=args.width,
                                  height=args.height, ingest=args.ingest)
@@ -811,11 +838,11 @@ def cmd_parity(args):
     return 0 if out.get("ok", True) else 1
 
 
-def _add_model_flags(sp) -> None:
+def _add_model_flags(sp, required: bool = True) -> None:
     sp.add_argument("--video-type", default="konvid_1k")
-    sp.add_argument("--model", required=True, help=".npz snapshot or reference .pth")
-    sp.add_argument("--imputer", required=True)
-    sp.add_argument("--scaler", required=True)
+    sp.add_argument("--model", required=required, help=".npz snapshot or reference .pth")
+    sp.add_argument("--imputer", required=required)
+    sp.add_argument("--scaler", required=required)
     sp.add_argument("--finetuned", action="store_true")
     _add_backbone_flags(sp)
 
@@ -864,9 +891,13 @@ def build_parser() -> tuple[argparse.ArgumentParser, dict]:
                    help="RunConfig JSON (relaxtpu_torch.config): defaults for every subcommand's flags")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("predict", help="one video -> MOS")
+    sp = sub.add_parser("predict", help="one video -> MOS (ReLaX-VQA) or quality score (FAST-VQA)")
     sp.add_argument("--video", required=True)
-    _add_model_flags(sp)
+    sp.add_argument("--arch", default="relaxvqa", choices=["relaxvqa", "fastvqa"],
+                    help="relaxvqa (default: --model, --imputer and --scaler) or fastvqa (FAST-B: --weights)")
+    sp.add_argument("--weights", default=None,
+                    help="fastvqa: a FastVQA state dict (.pth; seeded random weights without it)")
+    _add_model_flags(sp, required=False)
     _add_geometry_flags(sp, "a raw .yuv video (a container carries its own)")
     _add_ingest_flag(sp)
     sp.set_defaults(fn=cmd_predict)

@@ -88,3 +88,70 @@ class VideoQualityPredictor:
                      ingest: str = "bgr") -> float:
         """File -> MOS: :meth:`enqueue_file` and the fetch."""
         return self.predict_feature(self.enqueue_file(path, framerate, width, height, ingest))
+
+
+class FastVQAPredictor:
+    """FAST-VQA (arXiv 2207.02595, FAST-B) on the extractor's device: a
+    video's clips and grid mini-patch fragments -> its quality score, the
+    mean of the head's per-position scores (the model's own scale).
+
+    ``extractor``: a ``features.fastvqa.FastVQAExtractor``.  The fragments'
+    offsets are drawn for each video from ``seed``'s generator, as FAST-VQA
+    draws them at test time.  ``enqueue_*`` stop before the fetch; ``finish``
+    fetches (the answer vector and the score).
+    """
+
+    def __init__(self, extractor, seed: int = 0, clip_len: int | None = None):
+        from relaxtpu_torch.features.fastvqa import CLIP_LEN
+
+        self.extractor = extractor
+        self.rng = np.random.default_rng(seed)
+        self.clip_len = clip_len or CLIP_LEN  # frames a clip (tests take fewer)
+
+    def offsets(self, h: int, w: int) -> np.ndarray:
+        from relaxtpu_torch.features.fastvqa import CLIPS, draw_offsets
+
+        return draw_offsets(self.rng, h, w, CLIPS)
+
+    def finish(self, handle) -> tuple:
+        return self.extractor.finish(handle)
+
+    def enqueue_arrays(self, frames_bgr):
+        """Every raw frame of a video, BGR (N, H, W, 3) uint8 -> the pending answer."""
+        from relaxtpu_torch.features.fastvqa import clip_indices
+
+        frames = np.asarray(frames_bgr)
+        clips = [frames[idx] for idx in clip_indices(len(frames), clip_len=self.clip_len)]
+        return self.extractor.enqueue_bgr(clips, self.offsets(*frames.shape[1:3]))
+
+    def predict_arrays(self, frames_bgr) -> float:
+        """Every raw frame of a video, BGR (N, H, W, 3) uint8 -> the score."""
+        return self.finish(self.enqueue_arrays(frames_bgr))[1]
+
+    def enqueue_file(self, path: str, framerate: float | None = None,
+                     width: int | None = None, height: int | None = None):
+        """Decode the clips' frames of ``path`` on the host and enqueue the
+        program without waiting -> the pending answer (``finish``).  A raw
+        ``.yuv`` file (``width`` and ``height`` given) goes up as I420 and is
+        converted on the device; a container is decoded to BGR."""
+        from relaxtpu_torch.features.fastvqa import clip_indices
+        from relaxtpu_torch.io.video import _read_video_frames, _yuv420_frame_count, probe_video, read_i420_frames
+
+        if path.endswith(".yuv"):
+            if width is None or height is None:
+                raise ValueError(f"{path}: a raw .yuv file needs its width and height")
+            w, h = int(width), int(height)
+            n = _yuv420_frame_count(path, w, h)
+            clips = [read_i420_frames(path, w, h, idx) for idx in clip_indices(n, clip_len=self.clip_len)]
+            return self.extractor.enqueue_i420(clips, h, w, self.offsets(h, w))
+        idx = clip_indices(probe_video(path)["nb_frames"], clip_len=self.clip_len)
+        flat = sorted({i for c in idx for i in c})
+        lookup = dict(zip(flat, _read_video_frames(path, flat)))
+        clips = [np.stack([lookup[i] for i in c]) for c in idx]
+        log.info("decoded %d frames of %s into %d clips", len(lookup), path, len(clips))
+        return self.extractor.enqueue_bgr(clips, self.offsets(*clips[0].shape[1:3]))
+
+    def predict_file(self, path: str, framerate: float | None = None,
+                     width: int | None = None, height: int | None = None) -> float:
+        """File -> score: :meth:`enqueue_file` and the fetch."""
+        return self.finish(self.enqueue_file(path, framerate, width, height))[1]
