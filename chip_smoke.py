@@ -42,7 +42,13 @@ Phases (any failed check raises, so the exit code is not 0):
    with ``torch.equal`` on the card and against the CPU, at the 540p and
    1080p levels with 16 pairs and at radii 1-60 (the run-time-radius
    kernel but at 5) on the edges of its plan, aligned and offset, into
-   NaN-filled outputs (``check_poly_expansion``); then the
+   NaN-filled outputs (``check_poly_expansion``); the pyramid level
+   (``csrc/pyramid.cu``) against its plain version: its smoothing with
+   ``torch.equal``, the level within 2 ulps, uint8 and f32 grey, at the
+   540p and 1080p levels with 16 pairs, ragged shapes and radii up to
+   ``PYR_RMAX`` (``check_pyramid_level``), each level timed beside its
+   bound and the plain version, and the flow with the kernel against the
+   flow with the plain level (``time_pyramid_levels``); then the
    flow's live f32 planes a pair at 1080p (``max_memory_allocated`` around
    ``farneback_flow``, 16 pairs) must fit the pipeline's working-set model;
    the long K3 timed at (48, 577, 12, 64) (ViT-B/16 at 384x384) and at the
@@ -56,7 +62,8 @@ Phases (any failed check raises, so the exit code is not 0):
    4 fps (16 frames, 16 pairs) through ``VideoQualityPredictor.predict_file``
    with seeded ResNet-50, ViT-B/16 (depth 12) and MLP weights, in bf16 and
    in f32; K1, K2 and K3 must each launch 12 times per video and the
-   expansion 4 times (8 on phase 6's 1080p chunked path), the MOS must
+   expansion and the pyramid 4 times each (8 on phase 6's 1080p chunked
+   path), the MOS must
    be finite and the bf16 vector within cosine 0.9999 of the f32 one;
    then one more video records every kernel call's inputs, and each kernel,
    its plain version and (for K3) ``F.scaled_dot_product_attention`` are
@@ -229,9 +236,12 @@ Phases (any failed check raises, so the exit code is not 0):
 13. print the seconds of each phase (phases 3 and 5-12 also by step), the
    ``kernels`` JSON line, the card line and the final status line.
 
-``python3 chip_smoke.py k4`` runs phases 1, 2 and 12 alone.  Exits with 1
-and prints no result when CUDA is not available.  Details go to
-``build/chip_smoke/chip_smoke.json`` (``chip_smoke_k4.json`` for ``k4``).
+``python3 chip_smoke.py k4`` runs phases 1, 2 and 12 alone; ``python3
+chip_smoke.py pyramid`` phases 1 and 2, the pyramid's checks and times and
+the flow's live planes.  Exits with 1 and prints no result when CUDA is not
+available.  Details go to ``build/chip_smoke/chip_smoke.json``
+(``chip_smoke_k4.json`` for ``k4``, ``chip_smoke_pyramid.json`` for
+``pyramid``).
 """
 
 from __future__ import annotations
@@ -289,7 +299,9 @@ from relaxtpu_torch.ops.attention import mha, mha_plain
 from relaxtpu_torch.ops import boxsolve as boxsolve_mod
 from relaxtpu_torch.ops.boxsolve import GENERIC_WINSIZE, STRIP_WINSIZE, box_blur_solve, box_blur_solve_plain
 from relaxtpu_torch.ops.colorspace import bgr_to_gray
-from relaxtpu_torch.ops.flow import POLY_NMAX, POLY_SPAN, farneback_flow, poly_expansion, poly_expansion_plain, pyramid_levels
+from relaxtpu_torch.ops.flow import (
+    POLY_NMAX, POLY_SPAN, PYR_RMAX, farneback_flow, poly_expansion, poly_expansion_plain, pyramid_level, pyramid_levels,
+)
 from relaxtpu_torch.ops.warp import update_matrices, update_matrices_plain
 from relaxtpu_torch.parallel.distributed import initialize
 from relaxtpu_torch.parallel.eval import ShardedVideoEvaluator
@@ -340,7 +352,26 @@ def k2_flops_per_px(winsize: int = 15) -> int:
 def pe_flops_per_px(n: int = 5) -> int:
     return 18 * (2 * n + 1) + 8
 
-TOL = {"K1": 1e-5, "K2": 1e-4, "K3_f32": 1e-4, "K3_bf16": 2e-2, "PE": 0.0}
+# the pyramid level: 2 ulps of the largest value (2^-22); its own check counts the ulps of every value
+TOL = {"K1": 1e-5, "K2": 1e-4, "K3_f32": 1e-4, "K3_bf16": 2e-2, "PE": 0.0, "PY": 2.4e-7}
+PY_ULPS = 2
+
+
+def py_work(prev: torch.Tensor, ksize: int, hk: int, wk: int) -> tuple[float, float]:
+    """(bytes, operations) of a pyramid level of P pairs: the grey images
+    read once and the level written; the smoothing's rounded products and
+    adds at the points the resize reads (horizontal at every row a sampled
+    row's taps reach and every sampled column, vertical at the sampled rows
+    and columns, 2 k - 1 a sum of k taps), at the add rate."""
+    p, h, w = prev.shape
+    rows = np.unique(flow_mod._pyramid_axis(h, hk)[:, :2])
+    cols = np.unique(flow_mod._pyramid_axis(w, wk)[:, :2])
+    r = ksize // 2
+    reach = np.zeros(h, bool)
+    for y in rows:
+        reach[max(0, y - r) : y + r + 1] = True
+    nbytes = 2 * p * (h * w * prev.element_size() + hk * wk * 4)
+    return float(nbytes), float(2 * p * (int(reach.sum()) + len(rows)) * len(cols) * (2 * ksize - 1))
 
 
 def gpu_line() -> str:
@@ -483,10 +514,10 @@ def report_build(so: str) -> dict:
     of tensor-core instructions (HMMA/HGMMA) in each K3 function's SASS
     (cuobjdump from the toolkit that built them); raises if a bf16 K3
     function, short or long, has none, or if the long K3 kernels, the
-    generic-radius K2 kernel, the wide-window K2's two passes or the
-    polynomial expansion kernel spill."""
+    generic-radius K2 kernel, the wide-window K2's two passes, the
+    polynomial expansion kernel or the pyramid kernel spill."""
     funcs = {}
-    for src in ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu", "window_attention.cu"):
+    for src in ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu", "window_attention.cu", "pyramid.cu"):
         name = None
         for line in open(os.path.join(_native.BUILD_DIR, src + ".log")):
             if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -507,7 +538,7 @@ def report_build(so: str) -> dict:
             funcs[name]["tensor_core_instructions"] += 1
     for name, f in funcs.items():
         kernel = re.search(r"(update_matrices|box_blur_solve|box_ring_solve|box_vsum|box_hsum_solve|mha_bf16(_long|_ring)?"
-                           r"|mha_f32(_long|_online)?|poly_expansion|window_mha)_kernel", name)
+                           r"|mha_f32(_long|_online)?|poly_expansion|window_mha|pyramid_level)_kernel", name)
         args = ",".join(re.findall(r"Li(\d+)E", name))
         f["kernel"] = f"{kernel.group(0) if kernel else name}<{args}>"
         mma = f"; {f.get('tensor_core_instructions')} HMMA/HGMMA" if "mha" in name else ""
@@ -515,11 +546,11 @@ def report_build(so: str) -> dict:
     bf16_mha = [f for n, f in funcs.items() if "mha_bf16" in n]
     if not all(any(k in n for n in funcs) for k in ("mha_bf16_long", "mha_bf16_ring", "mha_f32_online",
                                                     "box_ring_solve", "box_vsum", "box_hsum_solve",
-                                                    "poly_expansion", "window_mha")):
-        raise AssertionError("the long K3, the generic-radius or wide-window K2, the expansion or K4 functions "
-                             "are missing from the build")
+                                                    "poly_expansion", "window_mha", "pyramid_level")):
+        raise AssertionError("the long K3, the generic-radius or wide-window K2, the expansion, K4 or the pyramid "
+                             "functions are missing from the build")
     for kernel in ("mha_bf16_ring", "mha_f32_online", "box_ring_solve", "box_vsum", "box_hsum_solve",
-                   "poly_expansion"):
+                   "poly_expansion", "pyramid_level"):
         fs = {n: f for n, f in funcs.items() if kernel in n}
         if any("0 bytes spill stores" not in f.get("spill", "") for f in fs.values()):
             raise AssertionError(f"the {kernel} kernel spills: {fs}")
@@ -721,6 +752,197 @@ def check_poly_expansion(gen: torch.Generator) -> float:
     return worst
 
 
+def pyramid_level_on_plain(prev: torch.Tensor, nxt: torch.Tensor, ksize: int, sigma: float, hk: int,
+                           wk: int) -> torch.Tensor:
+    """The plain version of a pyramid level, on the tensors' device, as
+    ``pyramid_level``'s CPU route calls it."""
+    base2 = torch.stack([prev, nxt]).to(torch.float32)
+    return flow_mod.pyramid_level_plain(base2, flow_mod._gaussian_kernel(ksize, sigma), hk, wk)
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of the last place of want (f32)."""
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output is not finite")
+    mag = want.abs()
+    spacing = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return ((got.double() - want.double()).abs() / spacing.double()).max().item()
+
+
+def py_into_nan(prev: torch.Tensor, nxt: torch.Tensor, ksize: int, sigma: float, hk: int, wk: int) -> torch.Tensor:
+    """The pyramid kernel launched as ``pyramid_level`` launches it, but into
+    a NaN-filled output, so an element it does not write stays NaN."""
+    p, h, w = prev.shape
+    out = torch.full((2, p, hk, wk), float("nan"), device=prev.device)
+    r, elem = ksize // 2, prev.element_size()
+    smem = flow_mod._pyramid_tile(h, w, hk, wk, r, elem)[3]
+    tw, seg, span, planes = flow_mod._pyramid_plan(2 * p, h, w, hk, wk, r, elem,
+                                                   flow_mod._pyramid_resident(prev.device, elem, r, smem))
+    _native.launch(flow_mod._PYR, prev.device, prev.data_ptr(), nxt.data_ptr(), out.data_ptr(),
+                   flow_mod._pyramid_tables(h, w, hk, wk, prev.device).data_ptr(), p, h, w, hk, wk, r, elem,
+                   flow_mod._pyramid_taps_f32(ksize, sigma).ctypes.data, tw, seg, span, planes)
+    return out
+
+
+def combined_as_the_kernel(smooth: torch.Tensor, hk: int, wk: int) -> torch.Tensor:
+    """The plain smoothing (..., H, W) resized as the kernel combines it:
+    rows then columns, the first weight's rounded product, then the second
+    weight's product added with one rounding (exact in f64 but for a rare
+    double rounding)."""
+    h, w = smooth.shape[-2:]
+
+    def axis(x, tab, dim):
+        tab = torch.from_numpy(tab).to(x.device)
+        i0, i1 = tab[:, 0].long(), tab[:, 1].long()
+        w0, w1 = tab[:, 2].view(torch.float32), tab[:, 3].view(torch.float32)
+        shape = [1] * x.dim()
+        shape[dim] = -1
+        w0, w1 = w0.view(shape), w1.view(shape)
+        first = w0 * x.index_select(dim, i0)
+        return (w1.double() * x.index_select(dim, i1).double() + first.double()).float()
+
+    return axis(axis(smooth, flow_mod._pyramid_axis(h, hk), -2), flow_mod._pyramid_axis(w, wk), -1)
+
+
+def check_pyramid_level(gen: torch.Generator) -> dict:
+    """The pyramid kernel against ``pyramid_level_plain`` on the card: 16
+    pairs at the four 540p and the four 1080p levels, uint8 and f32 grey
+    (f32 in NaN-padded allocations), then ragged shapes (H x W 33 x 47, 70 x
+    90, 131 x 67 and 48 x 64 at their levels, each at the start of its
+    allocation and one element into it) and radii 4, 9, 39 and ``PYR_RMAX`` on 2 pairs of 170 x 181;
+    through the wrapper and into NaN-filled outputs.  The smoothing: the
+    kernel on an unchanged geometry at each level's Gaussian is
+    ``torch.equal`` to the plain smoothing; the level: at most ``PY_ULPS``
+    ulps from the plain level, and the ulps from the plain smoothing
+    combined as the kernel combines it (expected 0).  Raises on a
+    difference or a wrapper call that did not launch once."""
+    res = {"checks": 0, "smoothing_checks": 0, "level_ulps": 0.0, "combined_ulps": 0.0, "max_abs_err": 0.0}
+    calls, n0 = 0, pyramid_level.launches
+
+    def padded(t: torch.Tensor, at: int) -> torch.Tensor:
+        """``t`` ``at`` elements into a larger allocation (NaN-filled for f32)."""
+        if t.dtype == torch.float32:
+            return nan_padded(t, at=at)
+        buf = torch.zeros(t.numel() + at + 4096, dtype=t.dtype, device=t.device)
+        buf[at : at + t.numel()] = t.reshape(-1)
+        return buf[at : at + t.numel()].view(t.shape)
+
+    def one(prev, nxt, ksize, sigma, hk, wk, label):
+        nonlocal calls
+        h, w = prev.shape[-2:]
+        smooth = pyramid_level(prev, nxt, ksize, sigma, h, w)
+        base2 = torch.stack([prev, nxt]).to(torch.float32)
+        plain_smooth = flow_mod._sep_correlate(base2, flow_mod._gaussian_kernel(ksize, sigma),
+                                               flow_mod._gaussian_kernel(ksize, sigma), "reflect")
+        if not torch.equal(smooth, plain_smooth):
+            raise AssertionError(f"pyramid {label} ksize {ksize}: smoothing differs from the plain version "
+                                 f"(|kernel - plain| {(smooth - plain_smooth).abs().max().item()})")
+        res["smoothing_checks"] += 1
+        want = flow_mod.resize_hw(plain_smooth, (hk, wk), "linear", antialias=False)
+        as_kernel = combined_as_the_kernel(plain_smooth, hk, wk)
+        del plain_smooth, smooth
+        calls += 2  # the smoothing and the level through the wrapper
+        for got in (pyramid_level(prev, nxt, ksize, sigma, hk, wk), py_into_nan(prev, nxt, ksize, sigma, hk, wk)):
+            u = ulps(got, want)
+            res["level_ulps"] = max(res["level_ulps"], u)
+            res["combined_ulps"] = max(res["combined_ulps"], ulps(got, as_kernel))
+            res["max_abs_err"] = max(res["max_abs_err"], (got - want).abs().max().item())
+            if u > PY_ULPS:
+                raise AssertionError(f"pyramid {label} ksize {ksize} -> {hk}x{wk}: {u} ulps from the plain level")
+            res["checks"] += 1
+        torch.cuda.empty_cache()
+
+    def params(scale):
+        sigma = (1.0 / scale - 1.0) * 0.5
+        return max(flow_mod._cvround(sigma * 5) | 1, 3), sigma
+
+    for tag, (hh, ww) in (("540p", (H, W)), ("1080p", (H_HI, W_HI))):
+        for dtype in (torch.uint8, torch.float32):
+            prev = torch.randint(0, 256, (PAIRS, hh, ww), generator=gen, device="cuda", dtype=torch.uint8)
+            nxt = torch.randint(0, 256, (PAIRS, hh, ww), generator=gen, device="cuda", dtype=torch.uint8)
+            prev, nxt = padded(prev.to(dtype), 0), padded(nxt.to(dtype), 0)
+            for scale, hk, wk in pyramid_levels(hh, ww):
+                one(prev, nxt, *params(scale), hk, wk, f"{tag} {PAIRS}x{hh}x{ww} {str(dtype)[6:]}")
+            del prev, nxt
+    for hh, ww in ((33, 47), (70, 90), (131, 67), (48, 64)):
+        for dtype in (torch.uint8, torch.float32):
+            for at in (0, 1):
+                prev, nxt = (padded(torch.randint(0, 256, (2, hh, ww), generator=gen, device="cuda",
+                                                  dtype=torch.uint8).to(dtype), at) for _ in range(2))
+                for scale, hk, wk in pyramid_levels(hh, ww):
+                    one(prev, nxt, *params(scale), hk, wk, f"2x{hh}x{ww} {str(dtype)[6:]}{' +1' * at}")
+    for ksize, sigma, hk, wk in ((9, 1.5, 43, 45), (19, 3.5, 21, 23), (79, 15.5, 5, 6),
+                                 (2 * PYR_RMAX + 1, 31.5, 3, 3)):
+        for dtype in (torch.uint8, torch.float32):
+            prev, nxt = (padded(torch.randint(0, 256, (2, 170, 181), generator=gen, device="cuda",
+                                              dtype=torch.uint8).to(dtype), 0) for _ in range(2))
+            one(prev, nxt, ksize, sigma, hk, wk, f"2x170x181 {str(dtype)[6:]}")
+    launched = pyramid_level.launches - n0
+    print(f"  pyramid level: {res['smoothing_checks']} smoothings bit-identical to the plain version; "
+          f"{res['checks']} levels within {res['level_ulps']:g} ulps of the plain level (bound {PY_ULPS}; "
+          f"{res['combined_ulps']:g} ulps from the plain smoothing combined as the kernel combines it; largest "
+          f"|kernel - plain| {res['max_abs_err']:g}); the wrapper launched {launched} times")
+    if launched != calls:
+        raise AssertionError(f"pyramid wrapper: {launched} launches in {calls} calls")
+    return res
+
+
+def time_pyramid_levels() -> dict:
+    """Each pyramid level of 16 uint8 grey pairs at 540p and 1080p: the
+    kernel by events and by the profiler's device time, the plain version
+    by events, the bound (``py_work``) and the kernel's share of it; then the
+    whole flow on the same pairs with the kernel and with the plain level
+    (CUDA events), the flows' largest and mean difference in px, and the
+    launches of one flow call."""
+    out = {}
+    for tag, (hh, ww) in (("540p", (H, W)), ("1080p", (H_HI, W_HI))):
+        frames = bgr_to_gray(synthetic_bgr(PAIRS + 1, hh, ww, seed=11))
+        prev, nxt = frames[:-1].contiguous(), frames[1:].contiguous()
+        levels = []
+        for scale, hk, wk in pyramid_levels(hh, ww):
+            sigma = (1.0 / scale - 1.0) * 0.5
+            ksize = max(flow_mod._cvround(sigma * 5) | 1, 3)
+            fn = lambda a=(prev, nxt, ksize, sigma, hk, wk): pyramid_level(*a)  # noqa: E731
+            nbytes, ops = py_work(prev, ksize, hk, wk)
+            bound_ms, by = bound(nbytes, ops, torch.float32, F32_ADDS_PER_S)
+            lv = {"level": f"{hk}x{wk}", "ksize": ksize, "ms": cuda_ms(fn), "device_ms": device_ms([fn]),
+                  "plain_ms": cuda_ms(lambda a=(prev, nxt, ksize, sigma, hk, wk): pyramid_level_on_plain(*a), iters=3),
+                  "bound_ms": bound_ms, "bound_by": by}
+            lv["share"] = lv["bound_ms"] / lv["device_ms"] if lv["device_ms"] else None
+            levels.append(lv)
+            share = "not measured" if lv["share"] is None else f"{lv['share']:.1%}"
+            print(f"    {tag} level {lv['level']} (ksize {ksize}): kernel {lv['ms']:.4f} ms by events, device "
+                  f"{lv['device_ms']}; plain {lv['plain_ms']:.3f} ms; bound {bound_ms:.4f} by {by}, share {share}")
+        n0 = pyramid_level.launches
+        got = farneback_flow(prev, nxt, **FARNEBACK_PARAMS)
+        launched = pyramid_level.launches - n0
+        saved = flow_mod.pyramid_level
+        flow_mod.pyramid_level = pyramid_level_on_plain
+        try:
+            want = farneback_flow(prev, nxt, **FARNEBACK_PARAMS)
+            plain_flow_ms = cuda_ms(lambda: farneback_flow(prev, nxt, **FARNEBACK_PARAMS), iters=3)
+        finally:
+            flow_mod.pyramid_level = saved
+        err = (got - want).abs()
+        r = {"levels": levels, "pyramid_launches": launched, "flow_ms": cuda_ms(
+            lambda: farneback_flow(prev, nxt, **FARNEBACK_PARAMS), iters=3), "plain_flow_ms": plain_flow_ms,
+            "flow_max_diff_px": err.max().item(), "flow_mean_diff_px": err.mean().item(),
+            "kernel_device_ms": sum(lv["device_ms"] or math.nan for lv in levels),
+            "bound_ms": sum(lv["bound_ms"] for lv in levels)}
+        print(f"  pyramid {tag}, {PAIRS} pairs: the 4 levels {r['kernel_device_ms']:.4f} device ms (bound "
+              f"{r['bound_ms']:.4f}); the flow {r['flow_ms']:.3f} ms with the kernel, {plain_flow_ms:.3f} with the "
+              f"plain level; flows differ by {r['flow_max_diff_px']:.3e} px at most, {r['flow_mean_diff_px']:.3e} "
+              f"mean; {launched} pyramid launches a flow call")
+        if launched != 4:
+            raise AssertionError(f"pyramid {tag}: {launched} launches a flow call, not 4")
+        if not (r["flow_mean_diff_px"] <= 1e-3 and torch.isfinite(got).all()):
+            raise AssertionError(f"pyramid {tag}: the flow with the kernel differs from the plain level's: {r}")
+        out[tag] = r
+        del prev, nxt, frames, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_attention_kernel(gen: torch.Generator) -> dict:
     """K3 in f32 and bf16 at the ViT shape and at N in {1, 17, 64, 197, 208,
     256} x D in {32, 64} (the short entries), and at N in {257, 300, 577,
@@ -774,10 +996,11 @@ def check_attention_kernel(gen: torch.Generator) -> dict:
 
 
 def record_kernel_inputs(run) -> dict:
-    """``run()`` (one more video or batch) with the three wrappers wrapped
+    """``run()`` (one more video or batch) with the kernels' wrappers wrapped
     where the pipeline calls them, keeping every call's inputs."""
-    calls = {"K1": [], "K2": [], "K3": [], "PE": []}
-    saved = (flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha, flow_mod.poly_expansion)
+    calls = {"K1": [], "K2": [], "K3": [], "PE": [], "PY": []}
+    saved = (flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha, flow_mod.poly_expansion,
+             flow_mod.pyramid_level)
 
     def keep(key, fn):
         def wrapped(*args, **kwargs):
@@ -789,11 +1012,13 @@ def record_kernel_inputs(run) -> dict:
     flow_mod.box_blur_solve = keep("K2", box_blur_solve)
     vit_mod.mha = keep("K3", mha)
     flow_mod.poly_expansion = keep("PE", poly_expansion)
+    flow_mod.pyramid_level = keep("PY", pyramid_level)
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha, flow_mod.poly_expansion = saved
+        (flow_mod.update_matrices, flow_mod.box_blur_solve, vit_mod.mha, flow_mod.poly_expansion,
+         flow_mod.pyramid_level) = saved
     return calls
 
 
@@ -803,8 +1028,9 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
     and, for the kernel and SDPA, by the profiler's device durations alone
     (``device_ms``); the kernel held against the plain version on those
     inputs; the bound from those inputs' sizes."""
-    kernel = {"K1": update_matrices, "K2": box_blur_solve, "K3": mha, "PE": poly_expansion}
-    plain = {"K1": update_matrices_plain, "K2": box_blur_solve_plain, "K3": mha_plain, "PE": poly_expansion_plain}
+    kernel = {"K1": update_matrices, "K2": box_blur_solve, "K3": mha, "PE": poly_expansion, "PY": pyramid_level}
+    plain = {"K1": update_matrices_plain, "K2": box_blur_solve_plain, "K3": mha_plain, "PE": poly_expansion_plain,
+             "PY": pyramid_level_on_plain}
     out = {}
     for key, recorded in calls.items():
         r = {"calls": len(recorded), "err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -817,6 +1043,9 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
             check(f"{key} {tag} {label} call {tuple(args[0].shape)}", rel, tol, verbose)
             if key == "PE" and not torch.equal(got, want):
                 raise AssertionError(f"PE {tag} {label} call {tuple(args[0].shape)}: not bit-identical")
+            if key == "PY" and ulps(got, want) > PY_ULPS:
+                raise AssertionError(f"PY {tag} {label} call {tuple(args[0].shape)} -> {args[4:]}: "
+                                     f"{ulps(got, want)} ulps from the plain version")
             r["err"], r["rel"] = max(r["err"], err), max(r.get("rel", 0.0), rel)
             kernel_fns.append(lambda args=args, kwargs=kwargs: kernel[key](*args, **kwargs))
             r["ms"] += cuda_ms(kernel_fns[-1])
@@ -833,13 +1062,17 @@ def time_on_main_path_inputs(calls: dict, tag: str, label: str = "main-path", ve
                 px = args[0].numel()
                 r["bytes"] += px * 6 * 4
                 r["flops"] += px * pe_flops_per_px(args[1])
+            elif key == "PY":
+                nbytes, ops = py_work(args[0], args[2], args[4], args[5])
+                r["bytes"] += nbytes
+                r["flops"] += ops
             else:
                 px = args[0].shape[0] * args[0].shape[-2] * args[0].shape[-1]
                 r["bytes"] += px * (17 if key == "K1" else 7) * 4
                 r["flops"] += px * (K1_FLOPS_PER_PX if key == "K1" else
                                     k2_flops_per_px(kwargs.get("winsize", args[1] if len(args) > 1 else 15)))
         r["bound_ms"], r["bound_by"] = bound(
-            r["bytes"], r["flops"], args[0].dtype, F32_ADDS_PER_S if key in ("K2", "PE") else None)
+            r["bytes"], r["flops"], args[0].dtype, F32_ADDS_PER_S if key in ("K2", "PE", "PY") else None)
         r["device_ms"] = device_ms(kernel_fns)
         r["library_device_ms"] = device_ms(library_fns, per_call=None) if library_fns else None
         share = f"{r['bound_ms'] / r['device_ms']:.1%}" if r["device_ms"] else "not measured"
@@ -927,6 +1160,7 @@ def slice_counts() -> dict:
 
 def reset_counts() -> None:
     update_matrices.launches = box_blur_solve.launches = mha.launches = poly_expansion.launches = 0
+    pyramid_level.launches = 0
     box_blur_solve.generic_launches = box_blur_solve.wide_launches = mha.long_launches = 0
 
 
@@ -1078,7 +1312,8 @@ def run_main_path() -> dict:
         mos = pred.predict_file(clip, framerate=4.0, width=W, height=H)
         n = counts()
         lap(f"{tag} first video")
-        print(f"  {tag}: MOS {mos!r}, launches per video {n}, of the expansion {poly_expansion.launches}")
+        print(f"  {tag}: MOS {mos!r}, launches per video {n}, of the expansion {poly_expansion.launches}, of the "
+              f"pyramid {pyramid_level.launches}")
         if not math.isfinite(mos):
             raise AssertionError(f"{tag} MOS is not finite: {mos}")
         if n != {"K1": 12, "K2": 12, "K3": 12} or any(slice_counts().values()):
@@ -1087,7 +1322,10 @@ def run_main_path() -> dict:
         if poly_expansion.launches != 4:
             raise AssertionError(f"{tag}: expected 4 launches of the expansion (one a pyramid level), got "
                                  f"{poly_expansion.launches}")
-        pe_launches = poly_expansion.launches
+        if pyramid_level.launches != 4:
+            raise AssertionError(f"{tag}: expected 4 launches of the pyramid kernel (one a level), got "
+                                 f"{pyramid_level.launches}")
+        pe_launches, py_launches = poly_expansion.launches, pyramid_level.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1107,7 +1345,8 @@ def run_main_path() -> dict:
         kernels = time_on_main_path_inputs(calls, tag)
         lap(f"{tag} kernels on the recorded inputs")
         out[tag] = {
-            "mos": mos, "launches": n, "pe_launches": pe_launches, "warm_ms_median": statistics.median(times),
+            "mos": mos, "launches": n, "pe_launches": pe_launches, "py_launches": py_launches,
+            "warm_ms_median": statistics.median(times),
             "warm_ms": times, "max_memory_allocated": peak, "kernels": kernels, "vec": vec,
         }
         if tag == "bf16":
@@ -1362,9 +1601,9 @@ def run_serving() -> tuple[dict, list]:
         r["chunked_launches"] = check_counts(
             f"{tag} 1080p chunked", {"K1": 12 * n_chunks, "K2": 12 * n_chunks, "K3": 12 * (1 + n_chunks)})
         print(f"  {tag} 1080p chunked: expansion launches {poly_expansion.launches} (expected {4 * n_chunks})")
-        if poly_expansion.launches != 4 * n_chunks:
-            raise AssertionError(f"{tag} 1080p chunked: expected {4 * n_chunks} expansion launches (4 levels a "
-                                 f"chunk), got {poly_expansion.launches}")
+        if poly_expansion.launches != 4 * n_chunks or pyramid_level.launches != 4 * n_chunks:
+            raise AssertionError(f"{tag} 1080p chunked: expected {4 * n_chunks} expansion and pyramid launches "
+                                 f"(4 levels a chunk), got {poly_expansion.launches} and {pyramid_level.launches}")
         reset_counts()
         with no_sync():
             vec_whole = fx.video_features_batch_i420([fbuf_hi], [nbuf_hi], H_HI, W_HI, chunk=0)
@@ -2420,12 +2659,15 @@ def mesh_one_rank(streamed540: list) -> tuple[dict, dict]:
     n = len(clips)
     out["launches"] = check_counts("(a) ShardedVideoEvaluator.run, 4 clips", {k: 12 * n for k in ("K1", "K2", "K3")})
     out["guarded"] = {"launches": guard.launches, "inside_device_guard": guard.guarded,
-                      "expansion_launches": poly_expansion.launches}
-    print(f"  (a) kernel library calls {guard.launches} (K1-K3 and {poly_expansion.launches} of the expansion), "
+                      "expansion_launches": poly_expansion.launches, "pyramid_launches": pyramid_level.launches}
+    print(f"  (a) kernel library calls {guard.launches} (K1-K3, {poly_expansion.launches} of the expansion and "
+          f"{pyramid_level.launches} of the pyramid), "
           f"inside the device guard {guard.guarded}")
-    if poly_expansion.launches != 4 * n:
-        raise AssertionError(f"(a) expected {4 * n} expansion launches, got {poly_expansion.launches}")
-    if guard.launches != sum(out["launches"].values()) + poly_expansion.launches or guard.guarded != guard.launches:
+    if poly_expansion.launches != 4 * n or pyramid_level.launches != 4 * n:
+        raise AssertionError(f"(a) expected {4 * n} expansion and pyramid launches, got {poly_expansion.launches} "
+                             f"and {pyramid_level.launches}")
+    if (guard.launches != sum(out["launches"].values()) + poly_expansion.launches + pyramid_level.launches
+            or guard.guarded != guard.launches):
         raise AssertionError(f"(a) launches outside the device guard: {out['guarded']}")
     same = [bool(np.array_equal(r, v)) for r, v in zip(rows, streamed540, strict=True)]
     out["rows_equal_phase6_streamed"] = same
@@ -3049,6 +3291,20 @@ def main() -> int:
     print(f"[2] kernels built and loaded in {build_s:.1f} s")
     build_info = report_build(_native.build())
     phase("2 build")
+    if sys.argv[1:] == ["pyramid"]:  # phases 1 and 2, the pyramid's checks and times, the flow's live planes
+        print("[3] the pyramid kernel against its plain version; each level timed; the flow with it and without")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        res = {"check": check_pyramid_level(gen), "timing": time_pyramid_levels(), "flow_live_planes_1080p":
+               flow_live_planes()}
+        phase("3 pyramid")
+        print(f"[13] seconds by phase: { {k: round(v, 1) for k, v in phase.seconds.items()} }")
+        os.makedirs(WORK_DIR, exist_ok=True)
+        with open(os.path.join(WORK_DIR, "chip_smoke_pyramid.json"), "w") as fh:
+            json.dump({"card": card, "torch": torch.__version__, "build": build_info, "pyramid": res}, fh, indent=1)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["k4"]:  # phases 1, 2 and 12 alone
         print("[12] K4 and FAST-VQA's program (540p, 4 views of 32x224x224, bf16)")
         k4 = run_window_attention()
@@ -3069,6 +3325,10 @@ def main() -> int:
     lap3("K1 and K2 stress shapes")
     stress["PE"] = check_poly_expansion(gen)
     lap3("expansion stress shapes")
+    pyramid_check = check_pyramid_level(gen)
+    stress["PY"] = pyramid_check["max_abs_err"]
+    pyramid_timing = time_pyramid_levels()
+    lap3("pyramid stress shapes, levels and flow")
     stress |= check_attention_kernel(gen)
     torch.cuda.synchronize()
     lap3("K3 stress shapes")
@@ -3124,7 +3384,9 @@ def main() -> int:
                "K2": ("box_blur_solve", "relaxtpu_torch/csrc/boxsolve.cu", "relaxtpu/ops/boxsolve.py:47"),
                "K3": ("mha", "relaxtpu_torch/csrc/attention.cu", "relaxtpu/ops/attention.py:34"),
                "PE": ("poly_expansion", "relaxtpu_torch/csrc/polyexp.cu",
-                      "no Pallas kernel (relaxtpu/ops/flow.py::_poly_expansion is left to XLA)")}
+                      "no Pallas kernel (relaxtpu/ops/flow.py::_poly_expansion is left to XLA)"),
+               "PY": ("pyramid_level", "relaxtpu_torch/csrc/pyramid.cu",
+                      "no Pallas kernel (the pyramid of relaxtpu/ops/flow.py is left to XLA)")}
     kernels = []
     rows = [(key, "bf16") for key in sources] + [("K3", "f32")]
     for key, tag in rows:
@@ -3136,7 +3398,8 @@ def main() -> int:
         kernels.append({
             "name": f"{key} {name}" + (" (f32)" if tag == "f32" else ""), "route": "cuda",
             "source": src, "replaces": rep,
-            "launches": main_res[tag]["pe_launches"] if key == "PE" else main_res[tag]["launches"][key],
+            "launches": main_res[tag]["pe_launches"] if key == "PE" else main_res[tag]["py_launches"] if key == "PY"
+            else main_res[tag]["launches"][key],
             "max_abs_err": max([r["err"], stress[key if key != "K3" else f"K3_{tag}"]]
                                + [v[key]["err"] for v in serving[tag]["kernels"].values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3185,6 +3448,7 @@ def main() -> int:
                    "seconds": {"phases": phase.seconds, "phase_3": lap3.seconds},
                    "stress_max_abs_err": stress,
                    "flow_live_planes_1080p": flow_mem, "cuda_vs_cpu_cosine": cos_cpu,
+                   "pyramid_check": pyramid_check, "pyramid_timing": pyramid_timing,
                    "long_attention": long_attn, "wide_window_flow": wide_flow, "pair_window_flow": pair_flow,
                    "main_path": main_res, "serving": serving, "training": training,
                    "extraction": extraction, "ingest": ingest, "mesh": mesh, "tools": tools, "k4": k4}, fh, indent=1)

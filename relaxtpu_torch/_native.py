@@ -26,7 +26,7 @@ import threading
 import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_SOURCES = ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu", "window_attention.cu", "minipatch.cu")
+_SOURCES = ("warp.cu", "boxsolve.cu", "attention.cu", "polyexp.cu", "window_attention.cu", "minipatch.cu", "pyramid.cu")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_ROOT, "build", "relaxtpu_torch")
 NVCC_FLAGS = (
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "relax_mha_bf16_long": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     "relax_poly_expansion": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
     "relax_window_mha_bf16": (_P, _P, _P, _P, *(_I,) * 12, _F, _P),
+    "relax_pyramid_level": (_P, _P, _P, _P, *(_I,) * 7, _P, _I, _I, _I, _I, _P),
 }
 
 # queries: (argtypes) -> int
@@ -57,6 +58,7 @@ _QUERIES = {
     "relax_box_blur_solve_generic_slots": (_I,),
     "relax_box_blur_solve_wide_slots": (_I,),
     "relax_poly_expansion_slots": (_I,),
+    "relax_pyramid_level_slots": (_I, _I, _I),
 }
 
 # host routines, which touch no device: (argtypes) -> int (0 on success)
