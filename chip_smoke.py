@@ -91,13 +91,10 @@ Phases (any failed check raises, so the exit code is not 0):
    (d) the serve loop in-process: two clips and a bad line, answered in
        order, the MOS within 1e-5 of ``predict_file``'s;
    every enqueue of (a)-(c) runs under ``torch.cuda.set_sync_debug_mode
-   ("error")``, so a hidden synchronisation fails the run; in bf16, warm
-   ms per video (median of 3) one after the other, streamed and batched
-   (the four clips, and the four clips three times over), and of the 1080p
-   clip, each with the device's busy share (profiler kernel time over wall
-   time) and peak memory, and for three of them the device time of each
-   pipeline stage; each kernel timed on the recorded calls of the batched
-   program and of the 1080p path;
+   ("error")``, so a hidden synchronisation fails the run; each kernel
+   timed on the recorded calls of the batched program and of the 1080p
+   path (warm ms per video, the device's idle share and each stage's
+   device time are the benchmark's: ``portbench/run.py --trace 1``);
 7. training of the MLP head at full width (35,203 -> 256 -> 128 -> 1), f32
    with TF32 off, on seeded low-rank features (``x = z @ A + 0.1 noise``,
    z in R^16, the MOS a monotone function of z plus noise, a few NaN/inf
@@ -1465,57 +1462,6 @@ def timed(run, reps: int = 3) -> dict:
             "busy_share": kernel_ms / wall if kernel_ms > 0 else None}
 
 
-def stage_breakdown(fx: FeatureExtractor, run) -> dict:
-    """Device ms of each pipeline stage over one ``run()``: the profiler
-    (CPU and CUDA activity) with a range around each stage, wrapped here and
-    taken off after; the flow is inside the fragments stage.  Also the
-    device's total, its count of ops (kernels and copies), the times a
-    launch found the launch queue full, and the ten largest host ops by
-    their own device time."""
-    stages = {"colorspace": (pipeline_mod, "yuv420_to_bgr"), "flow": (pipeline_mod, "farneback_flow"),
-              "fragments": (fx, "_fragments"), "backbone_inputs": (fx, "_backbone_inputs"),
-              "backbones": (fx, "_backbones")}
-    saved = {name: getattr(obj, attr) for name, (obj, attr) in stages.items()}
-
-    def ranged(name, fn):
-        def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return wrapped
-
-    run()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    try:
-        for name, (obj, attr) in stages.items():
-            setattr(obj, attr, ranged(name, saved[name]))
-        with torch.profiler.profile(activities=acts) as prof:
-            run()
-            torch.cuda.synchronize()
-    finally:
-        for name, (obj, attr) in stages.items():
-            if obj is fx:
-                delattr(fx, attr)
-            else:
-                setattr(obj, attr, saved[name])
-    # The profiler also puts each range on the device's timeline as a span
-    # named like the range; only the host-side range sums its kernels.
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    out = {name: sum(e.device_time_total for e in events if e.device_type == cpu and e.name == name) / 1e3
-           for name in stages}
-    device = [e for e in events if e.device_type == cuda and e.name not in stages]
-    out["device_total"] = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    out["device_ops"] = len(device)
-    out["launch_queue_full"] = sum(e.name == "Command Buffer Full" for e in events)
-    ops = sorted((e for e in prof.key_averages() if e.device_type == cpu and e.key not in stages),
-                 key=lambda e: -e.self_device_time_total)
-    out["top_ops"] = [(e.key, e.self_device_time_total / 1e3, e.count) for e in ops[:10]]
-    print(f"    stages, device ms: { {k: round(v, 3) for k, v in out.items() if k != 'top_ops'} }")
-    print(f"    largest ops, own device ms (calls): {[(k, round(v, 3), c) for k, v, c in out['top_ops']]}")
-    return out
-
-
 def stream(pred: VideoQualityPredictor, clips: list, in_flight: int = 2) -> list:
     """Each clip through ``enqueue_file`` (under ``no_sync``) with
     ``in_flight`` enqueued -> the fetched vectors, in order."""
@@ -1526,12 +1472,6 @@ def stream(pred: VideoQualityPredictor, clips: list, in_flight: int = 2) -> list
         while len(pending) > in_flight:
             out.append(pending.popleft().cpu().numpy())
     return out + [v.cpu().numpy() for v in pending]
-
-
-def decode_540p(path: str):
-    """``predict-batch``'s decode of a 540p raw clip at 4 fps (on a host
-    without the native decoder: the numpy reader's I420)."""
-    return decode_video(path, 4.0, W, H)
 
 
 def make_clip(name: str, n: int, h: int, w: int, seed: int) -> str:
@@ -1628,31 +1568,6 @@ def run_serving() -> tuple[dict, list]:
                 raise AssertionError(f"serve loop answered {lines}")
             r["serve"] = lines
             lap(f"{tag} d")
-
-            print(f"  ({tag}) warm ms per video: one after the other, streamed (2 in flight), batched by 4")
-            modes = {
-                "sequential": lambda: [pred.predict_file(c, framerate=4.0, width=W, height=H) for c in clips],
-                "streamed": lambda: predict_batch(pred, clips, decode_540p, batch=1),
-                "batched": lambda: predict_batch(pred, clips, decode_540p, batch=len(clips)),
-                # twelve videos: the pipeline's fill (first decode) and drain
-                # (last fetch) weigh a third as much a video as with four
-                "streamed_12": lambda: predict_batch(pred, clips * 3, decode_540p, batch=1),
-                "batched_12": lambda: predict_batch(pred, clips * 3, decode_540p, batch=len(clips)),
-                "1080p_chunked": lambda: pred.predict_file(clip_hi, framerate=4.0, width=W_HI, height=H_HI),
-            }
-            r["timing"] = {}
-            for mode, run in modes.items():
-                t = r["timing"][mode] = timed(run)
-                per = {"1080p_chunked": 1, "streamed_12": 3 * len(clips), "batched_12": 3 * len(clips)}.get(
-                    mode, len(clips))
-                print(f"  {mode}: {t['ms_median'] / per:.2f} ms per video (runs {t['ms']} for {per}), "
-                      f"busy share {t['busy_share']}, max_memory_allocated {t['max_memory_allocated']}")
-            lap(f"{tag} warm timing")
-            r["stages"] = {}
-            for mode in ("sequential", "batched", "1080p_chunked"):
-                print(f"  ({tag}) where the device time goes: {mode}")
-                r["stages"][mode] = stage_breakdown(fx, modes[mode])
-            lap(f"{tag} stage breakdown")
 
         print(f"  ({tag}) kernels on the serving shapes")
         r["kernels"] = {
@@ -2351,22 +2266,22 @@ FRAG_ENTRIES = 15171 + 4608  # frag_resnet and frag_vit: NaN for a video with no
 
 
 class UploadBytes:
-    """While inside: bytes that ``fx._upload`` sends to the device."""
+    """While inside: bytes that ``fx.upload`` sends to the device."""
 
     def __init__(self, fx: FeatureExtractor):
         self.fx, self.n = fx, 0
 
     def __enter__(self):
-        inner = self.fx._upload
+        inner = self.fx.upload
 
         def counted(arrays):
             self.n += sum(np.asarray(a).nbytes for a in arrays)
             return inner(arrays)
-        self.fx._upload = counted
+        self.fx.upload = counted
         return self
 
     def __exit__(self, *exc):
-        del self.fx._upload
+        del self.fx.upload
 
 
 def i420_clip(n_frames: int, h: int, w: int, seed: int) -> tuple[np.ndarray, np.ndarray]:

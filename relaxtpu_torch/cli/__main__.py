@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 from relaxtpu_torch.io.video import _clean_meta, decode_video
-from relaxtpu_torch.ops.colorspace import bgr_to_yuv420, pack_i420, unpack_i420, yuv420_to_bgr
+from relaxtpu_torch.ops.colorspace import bgr_to_yuv420, pack_i420
 
 log = logging.getLogger("relaxtpu_torch.cli")
 
@@ -399,30 +399,30 @@ def _extract_one(extractor, ablation, mode: str, network: str, layer: str, kind:
         if kind == "i420":
             return extractor.video_feature_async_i420(*data)
         return extractor.video_feature_async(*data)
-    frame_modes = mode in ("layer_stack", "layer")  # the rest read only the pairs
-    if kind == "i420":
-        fbuf, nbuf, h, w = data
-        frames = yuv420_to_bgr(*unpack_i420(extractor._upload([fbuf]), h, w))
-        if not frame_modes:  # the pairs' first frames are the sampled frames
-            nxt = yuv420_to_bgr(*unpack_i420(extractor._upload([nbuf]), h, w))
-            prev = frames[: len(nxt)]
-    elif frame_modes:
-        frames = extractor._upload([data[0]])
-    else:
-        frames, prev, nxt = extractor._upload_bgr(*data)
-    if frame_modes:
+    if mode in ("layer_stack", "layer"):  # the frames alone
+        if kind == "i420":  # no successor frames go up
+            fbuf, nbuf, h, w = data
+            frames, _ = extractor._i420_inputs([fbuf], [nbuf[:0]], h, w)
+        else:
+            frames = extractor.upload([data[0]])
         if network == "vit":
             return extractor.frame_features_dev(frames, ("vit",))[1]
         if mode == "layer_stack":
             return extractor.frame_features_dev(frames, ("resnet50",))[0]
         return _single_layer_frames(ablation, network, layer, frames)
+    if kind == "i420":  # the pairs alone
+        fbuf, nbuf, h, w = data
+        prev, nxt = extractor._i420_inputs([fbuf], [nbuf], h, w)[1](0, len(nbuf))
+    else:
+        _, prev, nxt = extractor.upload_bgr(*data)
     if mode == "fragment_layerstack":
         return extractor.pair_features_dev(prev, nxt, ("resnet50",))[0]
     if mode == "fragment_pool":
         return extractor.pair_features_dev(prev, nxt, ("vit",))[1]
-    step = extractor.max_pair_batch(prev.shape[1], prev.shape[2])
-    return torch.cat([ablation.pair_features_dev(mode, network, layer, prev[s : s + step], nxt[s : s + step])
-                      for s in range(0, len(prev), step)])
+    from relaxtpu_torch.features.pipeline import pair_chunks
+
+    chunks = pair_chunks(len(prev), extractor.max_pair_batch(prev.shape[1], prev.shape[2]))
+    return torch.cat([ablation.pair_features_dev(mode, network, layer, prev[s:e], nxt[s:e]) for s, e in chunks])
 
 
 def _row_geometry(meta: dict, i: int) -> tuple:

@@ -90,5 +90,5 @@ class AblationExtractor:
 
     def pair_features(self, mode: str, network: str, layer: str, prev, nxt) -> np.ndarray:
         """(P, H, W, 3) uint8 BGR pairs -> (P, D) f32 numpy."""
-        up = self.base._upload
+        up = self.base.upload
         return self.pair_features_dev(mode, network, layer, up([prev]), up([nxt])).cpu().numpy()

@@ -24,15 +24,19 @@ Three programs share these stages:
   chunks of ``max_pair_batch`` pairs, one backbone batch of sum(F) +
   2 sum(P) images, per-video means;
 - a long or high-resolution video, with more pairs than ``max_pair_batch``:
-  the frames once, then one backbone batch per chunk of pairs, the sums
-  added on the device.
+  the frames once, then the pair walk (``_pair_rows``: fragments and one
+  backbone batch a chunk of pairs, which ``pair_features_dev`` runs too),
+  the sums added on the device.
 
-The async entry points upload through pinned memory without blocking and
-return the vector on the device without waiting for it, so the host can
-decode the next video while this one computes.  All work stays on the
-current stream.  PyTorch runs eagerly, so nothing is padded to shape
-buckets: the means are plain means over the real rows, which is what the
-JAX package's masked means over its padded rows compute.
+Both single-video programs choose between the first and the last in one
+place (``_video_vec``).  Host stacks reach the device through ``upload``
+(and ``upload_bgr`` for a BGR video), which the callers outside this module
+use too: the async entry points upload through pinned memory without
+blocking and return the vector on the device without waiting for it, so
+the host can decode the next video while this one computes.  All work
+stays on the current stream.  PyTorch runs eagerly, so nothing is padded
+to shape buckets: the means are plain means over the real rows, which is
+what the JAX package's masked means over its padded rows compute.
 
 Each public program's call is one ``relaxtpu.enqueue`` span holding the
 spans of its stages (``utils.profiling.span``: recorded only while a
@@ -68,13 +72,16 @@ FARNEBACK_PARAMS = dict(
 
 # The working-set model behind max_pair_batch (derivation in PERF.md).
 # FLOW_LIVE_PLANES: the f32 planes of the finest pyramid level that
-# farneback_flow holds a pair at its peak (46.5 measured with
-# torch.cuda.max_memory_allocated at 1080x1920 with 16 pairs, chip_smoke.py
-# phase 3), rounded up.  BACKBONE_PEAK_BYTES: the backbones' peak, weights
-# included, over 172 images in f32 (2.86 GB measured, chip_smoke.py phase
-# 6), rounded up; the rest of the card is the flow's budget.  Both checks
-# fail the chip run if a measurement exceeds its constant.  The CPU has no
-# such limit and takes a fixed budget.
+# farneback_flow holds a pair at its peak, measured with
+# torch.cuda.max_memory_allocated at 1080x1920 with 16 pairs: 46.5 with the
+# levels built by eager ops (chip_smoke.py phase 3), 24.00 with the pyramid
+# kernel (chip_smoke.py pyramid).  The constant stays 48, above both; on an
+# 80 GB card the cap of 16 pairs binds up to 2160x3840 either way.
+# BACKBONE_PEAK_BYTES: the backbones' peak, weights included, over 172
+# images in f32 (2.86 GB measured, chip_smoke.py phase 6), rounded up; the
+# rest of the card is the flow's budget.  Both checks fail the chip run if
+# a measurement exceeds its constant.  The CPU has no such limit and takes
+# a fixed budget.
 FLOW_LIVE_PLANES = 48
 BACKBONE_PEAK_BYTES = 3e9
 CPU_FLOW_BUDGET = 8.5e9
@@ -94,6 +101,15 @@ def prev_frame_runs(n_frames, n_pairs, start: int, stop: int) -> list[tuple[int,
             runs.append((f0 + lo - p0, f0 + hi - p0))
         f0, p0 = f0 + nf, p0 + npair
     return runs
+
+
+def pair_chunks(n_pairs: int, chunk: int) -> list[tuple[int, int]]:
+    """(start, stop) of each chunk of ``chunk`` pairs over ``n_pairs`` pairs
+    (``chunk`` 0: one chunk); none for no pairs.  The pair walks of the
+    programs and of the callers that chunk pairs themselves take theirs
+    here."""
+    step = chunk or max(n_pairs, 1)
+    return [(s, min(s + step, n_pairs)) for s in range(0, n_pairs, step)]
 
 
 def is_prefix_view(prev: np.ndarray, frames: np.ndarray) -> bool:
@@ -216,10 +232,9 @@ class FeatureExtractor:
         gets NaN in its 19,779 fragment entries, as in the JAX package.
         """
         f, p = sum(n_frames), sum(n_pairs)
-        step = chunk or max(p, 1)
         ori, merged = [], []
-        for s in range(0, p, step):
-            o, m = self._fragments(*pairs(s, min(s + step, p)))
+        for s, e in pair_chunks(p, chunk):
+            o, m = self._fragments(*pairs(s, e))
             ori.append(o)
             merged.append(m)
         x_rn, x_vit = self._backbone_inputs(frames, resize=True)
@@ -235,26 +250,36 @@ class FeatureExtractor:
                            frag_rn.split(n_pairs), frag_vit.split(n_pairs))
             return torch.stack([torch.cat([x.mean(0) for x in seg]) for seg in segments])
 
-    def _video_vec_chunked(self, frames, pairs, n_pairs: int, chunk: int) -> torch.Tensor:
-        """One video with more pairs than the flow stage takes at once ->
-        (35203,): the frames' backbone batch once, then fragments and
-        backbones per chunk of ``chunk`` pairs, the pairs' rows summed on the
-        device."""
-        stack, _, vit = self._backbones(*self._backbone_inputs(frames, resize=True))
-        sum_rn = sum_vit = 0.0
-        for s in range(0, n_pairs, chunk):
-            ori, merged = self._fragments(*pairs(s, min(s + chunk, n_pairs)))
-            x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), resize=False)
+    def _pair_rows(self, pairs, n_pairs: int, chunk: int, networks=NETWORKS):
+        """The pair walk: for each chunk of ``chunk`` pairs, fragments, then
+        the backbones over its ori and merged fragments; yields the chunk's
+        (frag_resnet, frag_vit) rows from inside its ``aggregate`` span, so
+        what the caller does with them is aggregation too."""
+        for s, e in pair_chunks(n_pairs, chunk):
+            ori, merged = self._fragments(*pairs(s, e))
+            x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), False, networks)
             rows = self._backbones(x_rn, x_vit)
             with span("aggregate"):
-                frag_rn, frag_vit = self._fragment_rows(*rows, len(ori))
-                sum_rn = sum_rn + frag_rn.sum(0)
-                sum_vit = sum_vit + frag_vit.sum(0)
+                yield self._fragment_rows(*rows, len(ori))
+
+    def _video_vec(self, frames, pairs, n_pairs: int) -> torch.Tensor:
+        """One video -> (35203,).  With at most ``max_pair_batch`` pairs, one
+        backbone batch through :meth:`_videos_vec`; with more, the frames'
+        backbone batch once, then the pair walk, the pairs' rows summed on
+        the device."""
+        chunk = self.max_pair_batch(frames.shape[1], frames.shape[2])
+        if n_pairs <= chunk:
+            return self._videos_vec(frames, pairs, [len(frames)], [n_pairs], 0)[0]
+        stack, _, vit = self._backbones(*self._backbone_inputs(frames, resize=True))
+        sum_rn = sum_vit = 0.0
+        for frag_rn, frag_vit in self._pair_rows(pairs, n_pairs, chunk):
+            sum_rn = sum_rn + frag_rn.sum(0)
+            sum_vit = sum_vit + frag_vit.sum(0)
         with span("aggregate"):
             return torch.cat([stack.mean(0), vit.mean(0), sum_rn / n_pairs, sum_vit / n_pairs])
 
     # ----------------------------------------------------------------- input
-    def _upload(self, arrays) -> torch.Tensor:
+    def upload(self, arrays) -> torch.Tensor:
         """Concatenate uint8 stacks along their first axis into one host
         buffer and copy it to the device without blocking.  On CUDA the
         buffer is pinned: PyTorch's host allocator keeps the block until the
@@ -268,27 +293,36 @@ class FeatureExtractor:
             np.concatenate(arrays, out=host.numpy())
             return host.to(self.device, non_blocking=True)
 
-    def _upload_bgr(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8):
+    def upload_bgr(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8):
         """Three BGR stacks -> (frames, prev, nxt) on the device.  Where prev
         is a prefix view of frames (``io.video.decode_video_inputs`` gives
         one), frames go up once and prev is their first rows on the device."""
         f, p = np.asarray(frames_bgr_u8), np.asarray(prev_bgr_u8)
-        frames = self._upload([f])
+        frames = self.upload([f])
         if is_prefix_view(p, f):
             prev = frames[: len(p)]
         else:
-            prev = self._upload([p])
-        return frames, prev, self._upload([next_bgr_u8])
+            prev = self.upload([p])
+        return frames, prev, self.upload([next_bgr_u8])
 
-    def _i420_pairs(self, frames, nbuf, h: int, w: int, n_frames, n_pairs):
-        """``pairs(start, stop)`` over device I420 successor frames: the
-        first frames are rows of ``frames``, the second ones are converted a
-        chunk at a time."""
+    def _i420_inputs(self, frames_i420_list, next_i420_list, h: int, w: int):
+        """Packed I420 stacks of videos of one resolution -> their BGR
+        frames on the device and ``pairs(start, stop)`` over the flat pairs.
+        Each list goes up as one buffer (1.5 bytes a pixel) and is converted
+        on the device, bit-identical to the host converter: the frames here,
+        the pairs' second frames a chunk at a time.  A pair's first frame is
+        its video's sampled frame of the same index, a row of the frames."""
+        n_frames = [len(a) for a in frames_i420_list]
+        n_pairs = [len(a) for a in next_i420_list]
+        fbuf, nbuf = self.upload(frames_i420_list), self.upload(next_i420_list)
+        with span("colorspace"):
+            frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
+
         def pairs(start: int, stop: int):
             prev = take_rows(frames, prev_frame_runs(n_frames, n_pairs, start, stop))
             with span("colorspace"):
                 return prev, yuv420_to_bgr(*unpack_i420(nbuf[start:stop], h, w))
-        return pairs
+        return frames, pairs
 
     # ------------------------------------------------------------ public API
     @torch.inference_mode()
@@ -299,21 +333,12 @@ class FeatureExtractor:
         ignored: the port runs each video at its own counts.
 
         The two stacks go up once (1.5 bytes a pixel) and are converted to
-        BGR on the device, bit-identical to the host converter.  The pairs'
-        first frames are the sampled frames, so prev is a prefix of frames.
-        A video with more pairs than ``max_pair_batch`` takes the chunked
-        path.
+        BGR on the device, bit-identical to the host converter.  A video
+        with more pairs than ``max_pair_batch`` takes the chunked path.
         """
         with span("enqueue"):
-            n_frames, n_pairs = len(frames_i420), len(next_i420)
-            fbuf, nbuf = self._upload([frames_i420]), self._upload([next_i420])
-            with span("colorspace"):
-                frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
-            pairs = self._i420_pairs(frames, nbuf, h, w, [n_frames], [n_pairs])
-            chunk = self.max_pair_batch(h, w)
-            if n_pairs > chunk:
-                return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
-            return self._videos_vec(frames, pairs, [n_frames], [n_pairs], 0)[0]
+            frames, pairs = self._i420_inputs([frames_i420], [next_i420], h, w)
+            return self._video_vec(frames, pairs, len(next_i420))
 
     @torch.inference_mode()
     def video_feature_async(self, frames_bgr_u8, prev_bgr_u8, next_bgr_u8, bucket: int = 8) -> torch.Tensor:
@@ -327,18 +352,10 @@ class FeatureExtractor:
         I420 program does.
         """
         with span("enqueue"):
-            frames, prev, nxt = self._upload_bgr(frames_bgr_u8, prev_bgr_u8, next_bgr_u8)
-            n_pairs = len(nxt)
-            if len(prev) != n_pairs:
-                raise ValueError(f"prev and next must pair up, got {len(prev)} and {n_pairs} frames")
-
-            def pairs(start: int, stop: int):
-                return prev[start:stop], nxt[start:stop]
-
-            chunk = self.max_pair_batch(frames.shape[1], frames.shape[2])
-            if n_pairs > chunk:
-                return self._video_vec_chunked(frames, pairs, n_pairs, chunk)
-            return self._videos_vec(frames, pairs, [len(frames)], [n_pairs], 0)[0]
+            frames, prev, nxt = self.upload_bgr(frames_bgr_u8, prev_bgr_u8, next_bgr_u8)
+            if len(prev) != len(nxt):
+                raise ValueError(f"prev and next must pair up, got {len(prev)} and {len(nxt)} frames")
+            return self._video_vec(frames, lambda s, e: (prev[s:e], nxt[s:e]), len(nxt))
 
     def video_feature_async_yuv(self, frames_yuv, next_yuv, bucket: int = 8) -> torch.Tensor:
         """(y, u, v) plane stacks, y (B, H, W) and u, v (B, H/2, W/2) uint8,
@@ -361,15 +378,11 @@ class FeatureExtractor:
         video is padded.
         """
         with span("enqueue"):
-            n_frames = [len(a) for a in frames_i420_list]
-            n_pairs = [len(a) for a in next_i420_list]
-            fbuf, nbuf = self._upload(frames_i420_list), self._upload(next_i420_list)
-            with span("colorspace"):
-                frames = yuv420_to_bgr(*unpack_i420(fbuf, h, w))
-            pairs = self._i420_pairs(frames, nbuf, h, w, n_frames, n_pairs)
+            frames, pairs = self._i420_inputs(frames_i420_list, next_i420_list, h, w)
             if chunk is None:
                 chunk = self.max_pair_batch(h, w)
-            return self._videos_vec(frames, pairs, n_frames, n_pairs, chunk)
+            return self._videos_vec(frames, pairs, [len(a) for a in frames_i420_list],
+                                    [len(a) for a in next_i420_list], chunk)
 
     @torch.inference_mode()
     def frame_features_dev(self, frames: torch.Tensor, networks=NETWORKS):
@@ -385,30 +398,24 @@ class FeatureExtractor:
     def pair_features_dev(self, prev: torch.Tensor, nxt: torch.Tensor, networks=NETWORKS):
         """(P, H, W, 3) uint8 BGR pairs on the device -> frag_resnet
         (P, 15171) and frag_vit (P, 4608), f32 on the device, not fetched;
-        fragments and backbones run a chunk of ``max_pair_batch`` pairs at a
-        time.  A network not in ``networks`` is not run and gives None."""
+        the pair walk takes ``max_pair_batch`` pairs at a time.  A network
+        not in ``networks`` is not run and gives None."""
         with span("enqueue"):
             chunk = self.max_pair_batch(prev.shape[1], prev.shape[2])
-            rows = []
-            for s in range(0, len(prev), chunk):
-                ori, merged = self._fragments(prev[s : s + chunk], nxt[s : s + chunk])
-                x_rn, x_vit = self._backbone_inputs(torch.cat([ori, merged]), False, networks)
-                out = self._backbones(x_rn, x_vit)
-                with span("aggregate"):
-                    rows.append(self._fragment_rows(*out, len(ori)))
+            rows = list(self._pair_rows(lambda s, e: (prev[s:e], nxt[s:e]), len(prev), chunk, networks))
             with span("aggregate"):
                 return tuple(None if parts[0] is None else torch.cat(parts) for parts in zip(*rows))
 
     def frame_features(self, frames_bgr_u8) -> tuple[np.ndarray, np.ndarray]:
         """(F, H, W, 3) uint8 BGR -> resnet stack (F, 13120), ViT stats
         (F, 2304), f32 numpy."""
-        stack, vit = self.frame_features_dev(self._upload([frames_bgr_u8]))
+        stack, vit = self.frame_features_dev(self.upload([frames_bgr_u8]))
         return stack.cpu().numpy(), vit.cpu().numpy()
 
     def pair_features(self, prev_bgr_u8, next_bgr_u8) -> tuple[np.ndarray, np.ndarray]:
         """(P, H, W, 3) uint8 BGR pairs -> frag_resnet (P, 15171), frag_vit
         (P, 4608), f32 numpy."""
-        frag_rn, frag_vit = self.pair_features_dev(self._upload([prev_bgr_u8]), self._upload([next_bgr_u8]))
+        frag_rn, frag_vit = self.pair_features_dev(self.upload([prev_bgr_u8]), self.upload([next_bgr_u8]))
         return frag_rn.cpu().numpy(), frag_vit.cpu().numpy()
 
     def video_feature_i420(self, frames_i420, next_i420, h: int, w: int) -> np.ndarray:

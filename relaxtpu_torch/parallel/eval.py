@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from relaxtpu_torch.features.layout import FRAG_RESNET_DIM, FRAG_VIT_DIM, TOTAL_FEATURE_DIM
-from relaxtpu_torch.features.pipeline import FeatureExtractor
+from relaxtpu_torch.features.pipeline import FeatureExtractor, pair_chunks
 from relaxtpu_torch.parallel.distributed import all_gather_rows, allgather_video_features, shard_videos
 from relaxtpu_torch.parallel.mesh import Mesh
 
@@ -133,7 +133,7 @@ class ShardedVideoEvaluator:
             if pad:
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
             k = len(arr) // n
-            return self.fx._upload([arr[i * k : (i + 1) * k]]), real
+            return self.fx.upload([arr[i * k : (i + 1) * k]]), real
 
         f_dev, f_real = block(np.asarray(frames))
         stack, vit = self.fx.frame_features_dev(f_dev)
@@ -141,9 +141,9 @@ class ShardedVideoEvaluator:
         prev, nxt = np.asarray(prev), np.asarray(nxt)
         step = self.fx.max_pair_batch(prev.shape[1], prev.shape[2]) * n
         frag_rn, frag_vit = [stack.new_empty((0, FRAG_RESNET_DIM))], [vit.new_empty((0, FRAG_VIT_DIM))]
-        for s in range(0, len(prev), step):
-            p_dev, p_real = block(prev[s : s + step])
-            n_dev, _ = block(nxt[s : s + step])
+        for s, e in pair_chunks(len(prev), step):
+            p_dev, p_real = block(prev[s:e])
+            n_dev, _ = block(nxt[s:e])
             rn, vt = self.fx.pair_features_dev(p_dev, n_dev)
             frag_rn.append(self._gather_blocks(rn, p_real))
             frag_vit.append(self._gather_blocks(vt, p_real))

@@ -233,8 +233,8 @@ def test_video_feature_async_matches_jax(predictors, clips, monkeypatch):
     tfx = tp.extractor
     frames, prev, nxt = tv.decode_video_inputs(clips["yuv"], 4.0, W, H)
     uploads = []
-    upload = tfx._upload
-    monkeypatch.setattr(tfx, "_upload", lambda arrays: uploads.append(len(arrays[0])) or upload(arrays))
+    upload = tfx.upload
+    monkeypatch.setattr(tfx, "upload", lambda arrays: uploads.append(len(arrays[0])) or upload(arrays))
     vec = tfx.video_feature_async(frames, prev, nxt)
     assert uploads == [2, 2] and vec.shape == (35203,) and vec.device.type == "cpu"
     monkeypatch.undo()
@@ -247,9 +247,9 @@ def test_video_feature_async_matches_jax(predictors, clips, monkeypatch):
     planes = [tuple(t.numpy() for t in unpack_i420(torch.from_numpy(b), h, w)) for b in (fb, nb)]
     np.testing.assert_array_equal(tfx.video_feature_async_yuv(*planes).numpy(), i420)
     calls = []
-    inner = FeatureExtractor._video_vec_chunked
+    inner = FeatureExtractor._pair_rows
     monkeypatch.setattr(FeatureExtractor, "max_pair_batch", lambda self, h, w: 1)
-    monkeypatch.setattr(FeatureExtractor, "_video_vec_chunked",
+    monkeypatch.setattr(FeatureExtractor, "_pair_rows",
                         lambda self, *a: calls.append(a[-1]) or inner(self, *a))
     assert_vectors_close(tfx.video_feature_async(frames, prev, nxt).numpy(), want)
     assert calls == [1]

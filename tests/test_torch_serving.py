@@ -24,7 +24,7 @@ from relaxtpu.oracle import build_torch_resnet50, build_torch_vit, compare_segme
 from relaxtpu.ops.colorspace import bgr_to_yuv420, pack_i420
 from relaxtpu.parity import synthetic_correlated_video
 from relaxtpu_torch.cli import __main__ as cli
-from relaxtpu_torch.features.pipeline import FeatureExtractor, prev_frame_runs
+from relaxtpu_torch.features.pipeline import FeatureExtractor, pair_chunks, prev_frame_runs
 from relaxtpu_torch.io import native
 from relaxtpu_torch.model.mlp import Mlp
 from relaxtpu_torch.model.scalers import FeatureScaler
@@ -130,22 +130,29 @@ def test_prev_frame_runs():
     assert prev_frame_runs([3, 2, 4], [2, 2, 3], 4, 6) == [(5, 7)]
 
 
+def test_pair_chunks():
+    assert pair_chunks(5, 2) == [(0, 2), (2, 4), (4, 5)]
+    assert pair_chunks(4, 2) == [(0, 2), (2, 4)]
+    assert pair_chunks(3, 16) == pair_chunks(3, 0) == [(0, 3)]
+    assert pair_chunks(0, 2) == pair_chunks(0, 0) == []
+
+
 def test_chunked_path_matches_unchunked_and_jax(extractors, monkeypatch):
-    """5 pairs with max_pair_batch forced to 2: frames once, then 3 pair
-    chunks, the sums added on the device."""
+    """5 pairs with max_pair_batch forced to 2: frames once, then one pair
+    walk of 3 chunks, the sums added on the device."""
     jfx, tfx = extractors
     fbuf, nbuf = i420_video(20, 5, 5)
     unchunked = tfx.video_feature_i420(fbuf, nbuf, H, W)
     want = np.asarray(jfx._video_feature_async_i420_chunked(fbuf, nbuf, H, W, 2, bucket=1))
     calls = []
-    inner = FeatureExtractor._video_vec_chunked
+    inner = FeatureExtractor._pair_rows
 
     def spy(self, *args):
         calls.append(args[-1])
         return inner(self, *args)
 
     monkeypatch.setattr(FeatureExtractor, "max_pair_batch", lambda self, h, w: 2)
-    monkeypatch.setattr(FeatureExtractor, "_video_vec_chunked", spy)
+    monkeypatch.setattr(FeatureExtractor, "_pair_rows", spy)
     got = tfx.video_feature_i420(fbuf, nbuf, H, W)
     assert calls == [2]
     assert_vectors_close(got, unchunked, mean_rel=1e-5)
